@@ -1,33 +1,52 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch on one CUDA card: the quickest proof that the
-port builds, is right and serves on the GPU.
+port builds, is right, trains and serves on the GPU.
 
-    python3 chip_smoke.py [--out PATH] [--profile STEPS]
+    python3 chip_smoke.py [--out PATH] [--profile STEPS] [--phases LIST]
 
 Phases, each of which passes or ends the script with a non-zero code:
 
 1. The card's name and power limit, the torch/CUDA versions, and the
    build of every kernel from the sources in this checkout (one ``nvcc``
    per source, all started together).
-2. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the serving path gives it, with the stated
-   tolerance; its time beside the plain version's, one PyTorch library
-   call's (a yardstick the port never calls) and the card's bound.
-3. Engine: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
-   llama2_7b(dtype="bfloat16"))`` at full width and depth, random
-   weights from a seed, answers 8 requests. Every request
-   must finish with its token count; the kernel must have launched
-   layers x forwards times and the plain version never; the greedy
-   requests' last-prompt-token logits must agree with a dense causal
-   forward of the same model.
+2. Kernels: each hand-written kernel (K5 ragged paged attention, K1-K3
+   flash attention forward / dq / dk-dv, K4 multi-tensor AdamW) against
+   its plain PyTorch version on the card, at the shapes the serving and
+   training paths give it and at the other arms it takes, with the
+   stated tolerance (flash attention element by element, and planted
+   faults must fail the same comparison; AdamW's bf16 params exactly
+   their masters rounded); its time beside the plain version's, one
+   PyTorch library call's (a yardstick the port never calls) and the
+   card's bound.
+3. Training: ``Model.train_batch_loop`` over ``LlamaForCausalLM(
+   LlamaConfig.llama2_7b(num_hidden_layers=8, dtype="bfloat16",
+   fuse_linear_cross_entropy=True))`` at full width, batch 4 x 2048
+   tokens, ``AdamW(1e-4, multi_precision=True)``, random weights and
+   batch from a seed. Before the first step the fused CE's float32
+   logits, loss and gradients are held against a float32 head. K1, K2
+   and K3 must have launched once per layer
+   and step, K4 once per step, no plain version at all; the losses must
+   be finite, start where random logits of the init's scale put them and
+   fall. Then the same 2-layer run through the kernels and through the
+   plain versions (patched in here) must agree loss for loss.
+4. Engine: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
+   llama2_7b(dtype="bfloat16", use_flash_attention=False))`` at full
+   width and depth, random weights from a seed, answers 8 requests.
+   Every request must finish with its token count; K5 must have
+   launched layers x forwards times and its plain version never; the
+   greedy requests' last-prompt-token logits must agree with a dense
+   forward of the same model in plain float32 attention.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit
 as ``nvidia-smi`` prints them, and ``{"ok": true, "device": ...}``.
-Exits non-zero without a CUDA device.
+Exits non-zero without a CUDA device. ``--phases`` runs a subset (a
+comma-separated list of ``kernels,train,serve``) and then prints no
+``ok`` line.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -35,11 +54,20 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 and
+# plain float32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 BF16_TOL = 2e-2   # atol = rtol for bf16 outputs (one bf16 ulp is 2**-8)
 F32_TOL = 1e-4    # f32 outputs: summation order only
+# flash attention's bf16 out and gradients, element by element:
+# |got - want| <= BF16_TOL |want| + FA_ROUNDOFFS * 2**-8 * sigma +
+# F32_TOL * RMS(want), sigma the root sum of squares of the products
+# summed into that element (the kernels round p, ds and their operands
+# to bf16: each product moves by up to 2**-8 of itself)
+FA_ROUNDOFFS = 8
+LSE_TOL = 1e-4    # lse (float32 in every case): absolute
 PAGE_SIZE = 16
 HEAD_DIM = 128
 KV_POOL_PAGES = 1024
@@ -138,9 +166,9 @@ def case_work(c):
     return nbytes, flops
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=BF16_FLOPS):
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = flops / BF16_FLOPS * 1e3
+    op_ms = flops / peak * 1e3
     return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
 
 
@@ -248,6 +276,668 @@ def kernel_phase(dev="cuda"):
               f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
               f"{flops} flop)", flush=True)
     return worst, timings
+
+
+# -- flash attention (K1 forward, K2 dq, K3 dk/dv) ---------------------------
+
+# the training step's attention: batch 4 x 2048 tokens, LLaMA-2-7B heads
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS, TRAIN_STEPS = 4, 2048, 8, 10
+FA_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 32, HEAD_DIM)
+# (name, (B, S, H, HKV, D), causal, dtype, with dlse)
+FA_CHECKS = [
+    ("llama2_7b training shape", FA_TRAIN_SHAPE, True, "bfloat16", False),
+    ("mistral GQA 32:8", (1, 2048, 32, 8, 128), True, "bfloat16", False),
+    ("non-causal", (2, 512, 8, 8, 128), False, "bfloat16", False),
+    ("ragged S=200 GQA 4:1", (2, 200, 8, 2, 128), True, "bfloat16", False),
+    ("D=64 ragged S=1000 GQA 2:1", (1, 1000, 8, 4, 64), True, "bfloat16",
+     False),
+    ("D=256", (1, 256, 4, 4, 256), True, "bfloat16", False),
+    ("dlse fold", (1, 512, 8, 2, 128), True, "bfloat16", True),
+    ("f32 GQA 4:2 D=64 S=300", (1, 300, 4, 2, 64), True, "float32", False),
+    ("f32 non-causal dlse", (2, 130, 4, 2, 128), False, "float32", True),
+]
+
+
+def fa_inputs(b, s, h, hkv, d, dtype, seed, dev="cuda"):
+    """q, k, v, dO [B,S,*,D] in ``dtype`` and a dlse [B,H,S] float32, all
+    N(0, 1) from a seeded generator on ``dev``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+    return (rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d),
+            rnd(b, s, h, d), rnd(b, h, s, dt=torch.float32))
+
+
+def fa_work(b, s, h, hkv, d, causal, itemsize):
+    """(bytes, flops) of K1, K2 and K3 on these shapes: each input read
+    once and each output written once (lse and delta [B,H,S] float32);
+    4*D flops a live (query, key) pair forward (two products), 6*D for
+    dq (s, dp, dq), 8*D for dk/dv (s, dp, dv, dk)."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    qo = b * s * h * d * itemsize      # q, o, dO or dq
+    kv = b * s * hkv * d * itemsize    # k or v or dk or dv
+    rows = 4 * b * h * s               # lse or delta
+    return {"fwd": (2 * qo + 2 * kv + rows, 4 * d * pairs),
+            "dq": (3 * qo + 2 * kv + 2 * rows, 6 * d * pairs),
+            "dkv": (2 * qo + 4 * kv + 2 * rows, 8 * d * pairs)}
+
+
+FA_NAMES = ("out", "lse", "dq", "dk", "dv")
+
+
+def fa_term_scales(q, k, v, do, lse, delta, causal):
+    """sigma of each element of out, dq, dk and dv: the root sum of
+    squares of the products the kernels sum into it (p v, ds k, ds q,
+    p dO), in float32 from the plain version's lse and delta."""
+    import torch
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    sc = d ** -0.5
+    kf, vf = (FK._repeat_kv(x, g).float() for x in (k, v))
+    qf, dof = q.float(), do.float()
+    sco = FK._scores(qf, kf, causal, sc)
+    p = torch.where(torch.isfinite(sco), torch.exp(sco - lse[..., None]),
+                    torch.zeros_like(sco))
+    del sco
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+    p2, ds2 = p.square_(), ds.square_()
+
+    def kv_sum(x):
+        return x.reshape(b, s, h // g, g, d).sum(3)
+    return {"out": torch.einsum("bhqk,bkhd->bqhd", p2, vf.square()).sqrt(),
+            "dq": torch.einsum("bhqk,bkhd->bqhd", ds2, kf.square()).sqrt()
+            * sc,
+            "dk": kv_sum(torch.einsum("bhqk,bqhd->bkhd", ds2,
+                                      qf.square())).sqrt() * sc,
+            "dv": kv_sum(torch.einsum("bhqk,bqhd->bkhd", p2,
+                                      dof.square())).sqrt()}
+
+
+def fa_limits(name, want, sigma):
+    """(rtol, atol) of one flash-attention output: lse LSE_TOL absolute;
+    float32 tensors F32_TOL; bf16 tensors BF16_TOL of each element plus
+    FA_ROUNDOFFS bf16 roundoffs of its sigma (:func:`fa_term_scales`)
+    and F32_TOL of the tensor's RMS, so that every element, not only the
+    largest, is held to what bf16 operands can move it by."""
+    import torch
+    if name == "lse":
+        return 0.0, LSE_TOL
+    if want.dtype == torch.float32:
+        return F32_TOL, F32_TOL
+    # the floor: float32 roundoff where sigma vanishes (dq's first row:
+    # its one product's ds is dp - delta, two float32 sums that cancel)
+    rms = want.float().square().mean().sqrt()
+    return BF16_TOL, FA_ROUNDOFFS * 2.0 ** -8 * sigma[name] + F32_TOL * rms
+
+
+def fa_compare(got, want, sigma):
+    """{name: (ratio, max abs error)} over matching dicts of tensors;
+    ratio = max over elements of |got - want| / (atol + rtol |want|),
+    so a tensor passes at ratio <= 1."""
+    out = {}
+    for name, w in want.items():
+        rtol, atol = fa_limits(name, w, sigma)
+        d = (got[name].float() - w.float()).abs()
+        lim = (atol + rtol * w.float().abs()).clamp_min(1e-30)
+        out[name] = ((d / lim).max().item(), d.max().item())
+    return out
+
+
+def planted_faults(q, k, v, do, out, lse, grads, tile=64):
+    """What the training-shape check must reject: the plain outputs as a
+    kernel with one fault would give them. K1 and K2 skipping the last
+    k tile; K3 skipping a middle q tile; K3 leaving the last quarter of
+    the keys' dk/dv at zero. Causal, float32 math."""
+    import torch
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    sc = d ** -0.5
+    dq, dk, dv = grads
+    qf, dof = q.float(), do.float()
+    lse = lse.float()
+    delta = FK._delta(out, do, None)
+    pos = torch.arange(s, device=q.device)
+
+    def probs(rows, keys):
+        kr = FK._repeat_kv(k[:, keys], g).float()
+        sc_ = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows], kr) * sc
+        live = pos[keys][None] <= pos[rows][:, None]
+        p = torch.exp(sc_ - lse[:, :, rows, None]) * live
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, rows],
+                          FK._repeat_kv(v[:, keys], g).float())
+        return p, p * (dp - delta[:, :, rows, None])
+
+    def kv_sum(x):   # [B, T, H, D] over each kv head's query heads
+        return x.reshape(b, x.shape[1], h // g, g, d).sum(3)
+
+    every = slice(0, s)
+    last = slice(s - tile, s)
+    p, ds = probs(every, last)
+    frac = p.sum(-1)                                     # [B, H, S]
+    part = torch.einsum("bhqk,bkhd->bqhd", p, FK._repeat_kv(
+        v[:, last], g).float())
+    skip_k = {
+        "out": ((out.float() - part) / (1 - frac).transpose(1, 2)[..., None]
+                ).to(out.dtype),
+        "lse": lse + torch.log1p(-frac),
+        "dq": (dq.float() - torch.einsum(
+            "bhqk,bkhd->bqhd", ds, FK._repeat_kv(k[:, last], g).float())
+            * sc).to(dq.dtype)}
+    mid = slice(s // 2, s // 2 + tile)
+    p, ds = probs(mid, every)
+    skip_q = {
+        "dk": (dk.float() - kv_sum(torch.einsum(
+            "bhqk,bqhd->bkhd", ds, qf[:, mid]) * sc)).to(dk.dtype),
+        "dv": (dv.float() - kv_sum(torch.einsum(
+            "bhqk,bqhd->bkhd", p, dof[:, mid]))).to(dv.dtype)}
+    zero = {n: t.clone() for n, t in (("dk", dk), ("dv", dv))}
+    for t in zero.values():
+        t[:, 3 * s // 4:] = 0
+    return [("K1 skips the last k tile", {n: skip_k[n]
+                                          for n in ("out", "lse")}),
+            ("K2 skips the last k tile", {"dq": skip_k["dq"]}),
+            ("K3 skips a middle q tile", skip_q),
+            ("K3 leaves the last quarter of keys at zero", zero)]
+
+
+def fa_phase(dev="cuda"):
+    """K1-K3 against their plain versions on the card, element by element
+    (:func:`fa_limits`), then timed at the training step's shape. The
+    backward kernels get the plain forward's out and lse so that each
+    kernel is held against its own plain version alone. At the training
+    shape the same comparison must also reject the planted faults of
+    :func:`planted_faults`."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    bf16 = torch.bfloat16
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    readings = {}
+    for i, (name, shape, causal, dtype, with_dlse) in enumerate(FA_CHECKS):
+        dtype = getattr(torch, dtype)
+        q, k, v, do, dlse = fa_inputs(*shape, dtype, seed=i, dev=dev)
+        dlse = dlse if with_dlse else None
+        out, lse = FK.fa_forward_cuda(q, k, v, causal=causal,
+                                      return_lse=True)
+        w_out, w_lse = FK.fa_forward_plain(q, k, v, causal=causal,
+                                           return_lse=True)
+        grads = FK.fa_backward_cuda(q, k, v, w_out, w_lse, do,
+                                    causal=causal, dlse=dlse)
+        w_grads = FK.fa_backward_plain(q, k, v, w_out, w_lse, do,
+                                       causal=causal, dlse=dlse)
+        torch.cuda.synchronize()
+        got = dict(zip(FA_NAMES, (out, lse) + grads))
+        want = dict(zip(FA_NAMES, (w_out, w_lse) + w_grads))
+        for n, t in got.items():
+            if not torch.isfinite(t.float()).all():
+                raise AssertionError(f"{name}: kernel {n} not finite")
+        sigma = (fa_term_scales(q, k, v, do, w_lse,
+                                FK._delta(w_out, do, dlse), causal)
+                 if dtype == bf16 else None)
+        cmp = fa_compare(got, want, sigma)
+        readings[name] = {n: dict(ratio=r, max_abs_err=e)
+                          for n, (r, e) in cmp.items()}
+        bad = {n: r for n, (r, _) in cmp.items() if not r <= 1.0}
+        if bad:
+            raise AssertionError(f"{name}: past the tolerance (ratio > 1): "
+                                 f"{bad}; readings {readings[name]}")
+        if dtype == bf16:
+            worst["fwd"] = max(worst["fwd"], cmp["out"][1], cmp["lse"][1])
+            worst["dq"] = max(worst["dq"], cmp["dq"][1])
+            worst["dkv"] = max(worst["dkv"], cmp["dk"][1], cmp["dv"][1])
+        print(f"kernel check ok: flash {name}: B,S,H,HKV,D={shape} "
+              f"causal={causal} {str(dtype)[6:]}: "
+              + " ".join(f"{n} err {e:.3e} ratio {r:.3f}"
+                         for n, (r, e) in cmp.items()), flush=True)
+        if shape == FA_TRAIN_SHAPE:
+            for fault, tensors in planted_faults(q, k, v, do, w_out, w_lse,
+                                                 w_grads):
+                r = {n: fa_compare({n: t}, {n: want[n]}, sigma)[n][0]
+                     for n, t in tensors.items()}
+                readings[name]["planted: " + fault] = r
+                if not max(r.values()) > 1.0:
+                    raise AssertionError(f"the check passes a planted "
+                                         f"fault: {fault}: ratios {r}")
+                print(f"planted fault rejected: {fault}: " + " ".join(
+                    f"{n} ratio {x:.2f}" for n, x in r.items()), flush=True)
+        del q, k, v, do, out, lse, w_out, w_lse, grads, w_grads, got, want
+        del sigma
+    print(f"flash check limits: bf16 |got - want| <= {BF16_TOL} |want| + "
+          f"{FA_ROUNDOFFS} * 2**-8 * sigma (the root sum of squares of the "
+          f"element's products) + {F32_TOL} RMS(want); float32 "
+          f"{F32_TOL} |want| + {F32_TOL}; lse {LSE_TOL} absolute; ratio = "
+          "the largest share of its limit", flush=True)
+
+    # times at the training step's shape (causal bf16, lse on, as the
+    # training forward calls K1)
+    b, s, h, hkv, d = FA_TRAIN_SHAPE
+    q, k, v, do, _ = fa_inputs(*FA_TRAIN_SHAPE, bf16, seed=100, dev=dev)
+    out, lse = FK.fa_forward_cuda(q, k, v, causal=True, return_lse=True)
+    delta = FK._delta(out, do, None)
+    t = {}
+    t["fwd"] = cuda_ms(lambda: FK.fa_forward_cuda(
+        q, k, v, causal=True, return_lse=True), iters=5)
+    t["dq"] = cuda_ms(lambda: FK.fa_dq_cuda(q, k, v, do, lse, delta,
+                                            causal=True), iters=5)
+    t["dkv"] = cuda_ms(lambda: FK.fa_dkv_cuda(q, k, v, do, lse, delta,
+                                              causal=True), iters=5)
+    plain_fwd = cuda_ms(lambda: FK.fa_forward_plain(
+        q, k, v, causal=True, return_lse=True), iters=1, warmup=1)
+    plain_bwd = cuda_ms(lambda: FK.fa_backward_plain(
+        q, k, v, out, lse, do, causal=True), iters=1, warmup=1)
+    # the library yardstick: SDPA on the same tensors seen as [B,H,S,D]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=10)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=5)
+    work = fa_work(b, s, h, hkv, d, True, q.element_size())
+    rows = {}
+    for key, plain_ms, lib_ms in (("fwd", plain_fwd, lib_fwd),
+                                  ("dq", plain_bwd, lib_bwd),
+                                  ("dkv", plain_bwd, lib_bwd)):
+        nbytes, flops = work[key]
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows[key] = dict(ms=t[key], plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         flops=flops, max_abs_err=worst[key])
+        print(f"kernel time flash {key}: B,S,H,HKV,D={FA_TRAIN_SHAPE} causal "
+              f"bf16: kernel {t[key]:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes} B, {flops} flop)", flush=True)
+    print("kernel time flash: the plain and sdpa backward times compute "
+          "dq, dk and dv together", flush=True)
+    rows["checks"] = readings
+    return rows
+
+
+# -- multi-tensor AdamW (K4) -------------------------------------------------
+
+ADAM = dict(b1=0.9, b2=0.999, eps=1e-8)
+
+
+def param_shapes(cfg):
+    """The shapes of LlamaForCausalLM(cfg)'s parameters, in order."""
+    h, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = ((cfg.num_key_value_heads or cfg.num_attention_heads)
+          * (h // cfg.num_attention_heads))
+    layer = [(h, h), (kv, h), (kv, h), (h, h), (m, h), (m, h), (h, m),
+             (h,), (h,)]
+    return [(v, h)] + layer * cfg.num_hidden_layers + [(h,), (v, h)]
+
+
+def adam_leaves(shapes, dtype, master, seed, dev="cuda", misalign=()):
+    """(params, grads, states) for leaves of ``shapes``; leaf i in
+    ``misalign`` lies one element past an aligned address (no 16-byte
+    vector access)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params, grads, states = [], [], []
+    for i, shp in enumerate(shapes):
+        n = math.prod(shp)
+        off = 1 if i in misalign else 0
+
+        def rnd(scale=1.0, dt=torch.float32):
+            x = torch.empty(n + off, dtype=dt, device=dev)[off:]
+            return x.copy_(torch.randn(n, generator=g, device=dev)
+                           * scale).view(shp)
+        p = rnd(dt=dtype)
+        st = {"moment1": rnd(0.1), "moment2": rnd(0.01).abs_()}
+        if master:
+            st["master"] = p.float()
+        params.append(p)
+        grads.append(rnd(dt=dtype))
+        states.append(st)
+    return params, grads, states
+
+
+def adam_param_fault(params, states, want):
+    """Why K4's params are wrong, or None. A bf16 param with an f32
+    master must be that master rounded to bf16, exactly, and within one
+    bf16 ulp of the plain version's master; an f32 param (its own
+    master) within F32_TOL of the plain version's."""
+    import torch
+    for i, (p, st, wp, wst) in enumerate(zip(params, states, want[0],
+                                             want[2])):
+        if "master" in st:
+            if not torch.equal(p, st["master"].to(p.dtype)):
+                return f"leaf {i} is not its master rounded to {p.dtype}"
+            ref = wst["master"].to(p.dtype).float()
+            _, e = torch.frexp(ref)        # |ref| = m 2**e, m in [0.5, 1)
+            ulp = torch.ldexp(torch.full_like(ref, torch.finfo(
+                p.dtype).eps), e - 1)
+            if not ((p.float() - ref).abs() <= ulp).all():
+                return f"leaf {i} is more than one ulp off the plain master"
+        elif not torch.allclose(p, wp, atol=F32_TOL, rtol=F32_TOL):
+            return f"leaf {i} differs from the plain version's"
+    return None
+
+
+def adamw_phase(cfg, dev="cuda"):
+    """K4 against its plain version over leaves of odd sizes (bf16 with
+    f32 masters, f32 without; coupled and decoupled decay; two steps),
+    then timed over leaves of the training model's shapes."""
+    import torch
+    from paddle_tpu_torch.ops import adamw_kernel as AK
+
+    odd = [(7,), (300,), (1000,), (8193,), (3, 4101), (129, 33), (1,)]
+    worst = 0.0
+    for master, decoupled in ((True, True), (True, False), (False, True),
+                              (False, False)):
+        dtype = torch.bfloat16 if master else torch.float32
+        got = adam_leaves(odd, dtype, master, seed=1, dev=dev,
+                          misalign=(1, 4))
+        want = adam_leaves(odd, dtype, master, seed=1, dev=dev,
+                           misalign=(1, 4))
+        before = [p.clone() for p in got[0]]
+        for step in (1, 2):
+            kw = dict(lr=1e-3 * step, step=step, wd=0.01,
+                      decoupled=decoupled, **ADAM)
+            AK.adamw_update_cuda(*got, **kw)
+            AK.adamw_update_plain(*want, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for st, wst in zip(got[2], want[2]):
+            for key in st:
+                torch.testing.assert_close(st[key], wst[key], atol=F32_TOL,
+                                           rtol=F32_TOL, msg=f"K4 {key}")
+                err = max(err, (st[key] - wst[key]).abs().max().item())
+        fault = adam_param_fault(got[0], got[2], want)
+        if fault:
+            raise AssertionError(f"K4 params: {fault}")
+        # the same check must reject a K4 that never wrote the params
+        if not adam_param_fault(before, got[2], want):
+            raise AssertionError("the K4 param check passes params the "
+                                 "kernel never wrote")
+        moved = (sum(int((p != b).sum()) for p, b in zip(got[0], before))
+                 / sum(p.numel() for p in before))
+        if moved < 0.1:
+            raise AssertionError(f"K4 moved only {moved:.3f} of the params")
+        worst = max(worst, err)
+        print(f"kernel check ok: adamw {len(odd)} leaves of odd sizes, "
+              f"{'bf16 + f32 master' if master else 'f32'}, "
+              f"{'decoupled' if decoupled else 'coupled'} decay, 2 steps: "
+              f"max_abs_err f32 state {err:.3e} (tol {F32_TOL}); params "
+              + ("equal to their masters rounded to bf16, within one bf16 "
+                 "ulp of the plain masters" if master else
+                 f"within {F32_TOL}") + f"; {100 * moved:.1f} % of the "
+              "params changed; unwritten params rejected", flush=True)
+
+    shapes = param_shapes(cfg)
+    n = sum(math.prod(s) for s in shapes)
+    leaves = adam_leaves(shapes, torch.bfloat16, True, seed=2, dev=dev)
+    kw = dict(lr=1e-4, step=3, wd=0.01, decoupled=True, **ADAM)
+    ms = cuda_ms(lambda: AK.adamw_update_cuda(*leaves, **kw), iters=5)
+    plain_ms = cuda_ms(lambda: AK.adamw_update_plain(*leaves, **kw),
+                       iters=1, warmup=1)
+    del leaves
+    torch.cuda.empty_cache()
+    # the library yardstick over float32 copies of the same leaves:
+    # reads p, g, m, v and writes p, m, v, 28 B a parameter, the same
+    # total as K4's bf16 param + f32 master (2 + 4 + 4 + 4 read, 2 + 4 +
+    # 4 + 4 written) by another split
+    g = torch.Generator(device=dev).manual_seed(3)
+    ps = [torch.nn.Parameter(torch.randn(s, generator=g, device=dev))
+          for s in shapes]
+    for p in ps:
+        p.grad = torch.randn(p.shape, generator=g, device=dev)
+    opt = torch.optim.AdamW(ps, lr=1e-4, weight_decay=0.01, fused=True)
+    library_ms = cuda_ms(opt.step, iters=3, warmup=1)
+    del ps, opt
+    torch.cuda.empty_cache()
+    nbytes, flops = 28 * n, 15 * n   # ~15 float32 flops a parameter
+    bound_ms, bound_by = bound(nbytes, flops, peak=F32_FLOPS)
+    print(f"kernel time adamw: {len(shapes)} leaves, {n} params (bf16 + "
+          f"f32 master): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch AdamW(fused) f32 {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops, max_abs_err=worst, params=n, leaves=len(shapes))
+
+
+# -- training ----------------------------------------------------------------
+
+# A random-init model's first loss: logits are h . W with the final
+# RMSNorm's output (RMS 1 per element, weight ones) and W ~ N(0, 0.02),
+# so each logit is ~ N(0, (0.02^2) * hidden); the cross entropy of
+# Gaussian logits of variance s2 over V classes is ~ ln V + s2 / 2.
+FIRST_LOSS_TOL = 0.5
+PATH_LOSS_TOL = 2e-2   # kernels vs plain versions, bf16, on a loss of ~11
+# the fused CE against a float32 head over the same bf16 values: its
+# logits to 5e-4 (rounded to bf16 they would be off by up to 2**-9 of
+# themselves, ~1e-2 at the largest logits of the init, ~6); the loss by
+# no more than those logits can move it (a row's softmax minus its one-
+# hot label sums to at most 2 in absolute value) plus 4 float32 ulps at
+# ~11; the hidden-state and head gradients (bf16, from a bf16 cotangent)
+# to 1e-2 of their norm
+HEAD_LOGIT_TOL = 5e-4
+HEAD_LOSS_TOL = 4e-6
+HEAD_GRAD_TOL = 1e-2
+
+
+def expected_first_loss(cfg):
+    return math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.hidden_size
+
+
+def train_setup(cfg, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                steps=TRAIN_STEPS):
+    """The bench step's objects: the model from seed 0, the criterion
+    bound to its head, AdamW(1e-4, multi_precision) under hapi.Model,
+    and ``steps`` copies of one batch from a numpy seed."""
+    import numpy as np
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    m = Model(model)
+    m.prepare(AdamW(1e-4, parameters=model.parameters(),
+                    multi_precision=True),
+              LlamaPretrainingCriterion(cfg).bind(model))
+    ids = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    return m, np.broadcast_to(ids, (steps,) + ids.shape).copy()
+
+
+def head_check(m, ids):
+    """The fused CE keeps float32 logits: its head's logits, its loss and
+    the gradients of the hidden state and head weight on the training
+    batch, before the first step, against a float32 head and cross
+    entropy over the same bf16 values."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.models.llama import _head_logits
+
+    net = m.network
+    net.train()
+    ids = torch.as_tensor(ids, device=m.device).long()
+    with torch.no_grad():
+        hidden = net(ids)
+    h = hidden.detach().requires_grad_()
+    h._fused_hidden = True
+    w = net.lm_head.weight
+    hf = h.detach().float().requires_grad_()
+    wf = w.detach().float().requires_grad_()
+    with torch.no_grad():
+        logits = _head_logits(h[:, :-1], w)
+        ref_logits = hf[:, :-1] @ wf.T
+        logit_err = (logits - ref_logits).abs().max().item()
+        logit_rms = ref_logits.square().mean().sqrt().item()
+    del logits, ref_logits
+    loss = m._loss(h, ids)
+    got = torch.autograd.grad(loss, (h, w))
+    ref = F.cross_entropy((hf[:, :-1] @ wf.T).flatten(0, 1),
+                          ids[:, 1:].flatten())
+    want = torch.autograd.grad(ref, (hf, wf))
+    gap = abs(loss.item() - ref.item())
+    gap_tol = 2 * logit_err + HEAD_LOSS_TOL
+    rel = [((a.float() - b).norm() / b.norm()).item()
+           for a, b in zip(got, want)]
+    print(f"head check: logits max error {logit_err:.3e} (RMS "
+          f"{logit_rms:.3f}, tol {HEAD_LOGIT_TOL}); fused CE loss "
+          f"{loss.item():.7f}, float32 head {ref.item():.7f}, gap "
+          f"{gap:.3e} (tol 2 x logits error + {HEAD_LOSS_TOL} = "
+          f"{gap_tol:.3e}); gradient error / norm: hidden {rel[0]:.3e}, "
+          f"head {rel[1]:.3e} (tol {HEAD_GRAD_TOL})", flush=True)
+    if not (logit_err <= HEAD_LOGIT_TOL and gap <= gap_tol
+            and max(rel) <= HEAD_GRAD_TOL):
+        raise AssertionError("the fused CE departs from a float32 head")
+    return dict(logit_max_err=logit_err, logit_rms=logit_rms,
+                loss=loss.item(), ref=ref.item(), gap=gap,
+                grad_rel_hidden=rel[0], grad_rel_head=rel[1])
+
+
+def _counts():
+    from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
+    return {**fa_kernel.stats, **{f"adamw_{k}": v
+                                  for k, v in adamw_kernel.stats.items()}}
+
+
+def _reset_counts():
+    from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
+    fa_kernel.reset_stats()
+    adamw_kernel.reset_stats()
+
+
+def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """The training step at full width and reduced depth: a counted run
+    of ``steps`` steps, then a timed one, then synchronised single steps
+    for the step time's median."""
+    import torch
+    from paddle_tpu_torch.models import count_params, flops_per_token
+
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    m, xs = train_setup(cfg, dev, batch, seq, steps)
+    on_card = m.device.type == "cuda"
+    print(f"train model: llama2_7b width h={cfg.hidden_size} L={layers} "
+          f"heads={cfg.num_attention_heads} ffn={cfg.intermediate_size} "
+          f"vocab={cfg.vocab_size}, {count_params(cfg) / 1e9:.3f}B params "
+          f"bf16 + f32 masters, batch {batch} x {seq}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    head = head_check(m, xs[0])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = m.train_batch_loop([xs], [xs])
+    first_wall = time.perf_counter() - t0
+    counts = _counts()
+
+    want = {"fwd_launches": layers * steps, "dq_launches": layers * steps,
+            "dkv_launches": layers * steps, "adamw_kernel_launches": steps}
+    zero = [k for k in counts if "plain" in k]
+    bad = {k: counts[k] for k in want if counts[k] != want[k]}
+    bad.update({k: counts[k] for k in zero if counts[k]})
+    if bad:
+        raise AssertionError(f"training counts {counts}: want {want} and 0 "
+                             f"for {zero}")
+    ls = losses.tolist()
+    expect = expected_first_loss(cfg)
+    if not all(math.isfinite(x) for x in ls):
+        raise AssertionError(f"training losses not finite: {ls}")
+    if abs(ls[0] - expect) > FIRST_LOSS_TOL:
+        raise AssertionError(f"first loss {ls[0]} is not within "
+                             f"{FIRST_LOSS_TOL} of {expect:.4f}")
+    if not ls[-1] < ls[0]:
+        raise AssertionError(f"loss did not fall: {ls}")
+    print(f"train ok: {steps} steps, losses {[round(x, 4) for x in ls]} "
+          f"(first within {FIRST_LOSS_TOL} of ln V + s2/2 = {expect:.4f}); "
+          f"launches K1 {counts['fwd_launches']} K2 "
+          f"{counts['dq_launches']} K3 {counts['dkv_launches']} = {layers} "
+          f"x {steps}, K4 {counts['adamw_kernel_launches']}, plain calls 0",
+          flush=True)
+
+    t0 = time.perf_counter()
+    m.train_batch_loop([xs], [xs])
+    loop_s = time.perf_counter() - t0
+    step_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        m.train_batch([xs[0]], [xs[0]])
+        step_s.append(time.perf_counter() - t0)
+    step_s.sort()
+    tokens = batch * seq
+    tok_s = steps * tokens / loop_s
+    mfu = flops_per_token(cfg, seq) * tok_s / BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    summary = dict(card=smi, layers=layers, batch=batch, seq=seq,
+                   steps=steps, losses=ls, counted_run_s=first_wall,
+                   loop_s=loop_s, tokens_per_s=tok_s, step_p50_s=step_s[2],
+                   step_min_s=step_s[0], step_max_s=step_s[-1], mfu=mfu,
+                   peak_mem_gib=peak, launches=counts, head=head)
+    print(f"training [{smi}]: {tok_s:.1f} tokens/s over a {steps}-step "
+          f"train_batch_loop ({loop_s:.3f} s), step p50 {step_s[2]:.4f} s "
+          f"(min {step_s[0]:.4f}, max {step_s[-1]:.4f}; 5 synchronised "
+          f"train_batch), MFU {100 * mfu:.2f} % of 989 TFLOP/s, peak "
+          f"memory {peak if peak is None else round(peak, 2)} GiB",
+          flush=True)
+    if profile_steps:
+        summary["profile"] = trace_steps(
+            lambda: m.train_batch([xs[0]], [xs[0]]), profile_steps,
+            f"train step (batch {batch} x {seq}, L={layers})", smi)
+    return summary
+
+
+def path_compare_phase(cfg, dev=None, steps=3, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ):
+    """The same short run through the kernels and through their plain
+    versions (the CUDA wrappers patched to the plain ones here; the
+    package has no switch for it): the losses must agree."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.ops import adamw_kernel as AK
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    def run():
+        m, xs = train_setup(cfg, dev, batch, seq, steps)
+        _reset_counts()
+        losses = m.train_batch_loop([xs], [xs]).tolist()
+        counts = _counts()
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, counts
+
+    kernel_losses, kc = run()
+    saved = FK.fa_forward_cuda, FK.fa_backward_cuda, AK.adamw_update_cuda
+    FK.fa_forward_cuda, FK.fa_backward_cuda = (FK.fa_forward_plain,
+                                               FK.fa_backward_plain)
+    AK.adamw_update_cuda = AK.adamw_update_plain
+    try:
+        plain_losses, pc = run()
+    finally:
+        FK.fa_forward_cuda, FK.fa_backward_cuda, AK.adamw_update_cuda = saved
+    layers = cfg.num_hidden_layers
+    n = layers * steps
+    if (kc["fwd_launches"] != n or kc["plain_fwd_calls"]
+            or pc["fwd_launches"] or pc["plain_fwd_calls"] != n
+            or pc["adamw_kernel_launches"]
+            or pc["adamw_plain_calls"] != steps):
+        raise AssertionError(f"path counts: kernels {kc}, plain {pc}")
+    diff = max(abs(a - b) for a, b in zip(kernel_losses, plain_losses))
+    print(f"path check: L={layers} full width, {steps} steps: kernels "
+          f"{[round(x, 5) for x in kernel_losses]}, plain "
+          f"{[round(x, 5) for x in plain_losses]}, max diff {diff:.3e} "
+          f"(tol {PATH_LOSS_TOL})", flush=True)
+    if not diff <= PATH_LOSS_TOL:
+        raise AssertionError(f"kernel path and plain path differ by {diff}")
+    return dict(layers=layers, steps=steps, kernel_losses=kernel_losses,
+                plain_losses=plain_losses, max_diff=diff)
 
 
 # -- the serving engine ------------------------------------------------------
@@ -404,8 +1094,6 @@ def profile_decode(eng, cfg, n_steps, smi):
     batch of 8 (context ~512): wall vs device busy time per step and the
     kernels that take the device time."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(1)
     for _ in range(8):
@@ -414,13 +1102,29 @@ def profile_decode(eng, cfg, n_steps, smi):
     while eng.scheduler.waiting or eng.scheduler.prefill_queue:
         eng.step()
     eng.step()
+    out = trace_steps(eng.step, n_steps, "decode step (8 lanes, ctx ~512)",
+                      smi)
+    eng.run()
+    return out
+
+
+def trace_steps(step, n_steps, what, smi):
+    """``torch.profiler`` over ``n_steps`` calls of ``step`` (after one
+    untraced call): wall vs device busy time per step and the kernels
+    that take the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            eng.step()
+            step()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    eng.run()
     # kernel rows only: an operator's row repeats its kernels' time
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True,
@@ -428,16 +1132,27 @@ def profile_decode(eng, cfg, n_steps, smi):
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3 / n_steps
     launches = sum(e.count for e in rows) / n_steps
     top = [(e.key, e.self_device_time_total / 1e3 / n_steps, e.count
-            // n_steps) for e in rows[:10]]
-    print(f"profile [{smi}]: decode step (8 lanes, ctx ~512): wall "
-          f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
-          f"({100 * device_ms / wall_ms:.1f} %), idle "
+            // n_steps) for e in rows[:12]]
+    # device time by kind: the port's own kernels (each in a top-level
+    # anonymous namespace of its csrc/*.cu), cuBLAS GEMMs, and PyTorch's
+    # other kernels
+    groups = {"port kernels": 0.0, "cuBLAS GEMMs": 0.0, "other": 0.0}
+    for e in rows:
+        kind = ("port kernels" if e.key.removeprefix("void ").startswith(
+                    "(anonymous namespace)::") else
+                "cuBLAS GEMMs" if any(w in e.key.lower() for w in (
+                    "nvjet", "gemm", "cublas", "cutlass")) else "other")
+        groups[kind] += e.self_device_time_total / 1e3 / n_steps
+    print(f"profile [{smi}]: {what}: wall {wall_ms:.3f} ms, device busy "
+          f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f} %), idle "
           f"{100 * (1 - device_ms / wall_ms):.1f} %, {launches:.0f} "
-          "kernels", flush=True)
+          "kernels; " + ", ".join(f"{k} {v:.3f} ms"
+                                  for k, v in groups.items()), flush=True)
     for name, ms, count in top:
         print(f"profile: {ms:8.3f} ms/step  x{count:<5d} {name[:90]}",
               flush=True)
     return dict(wall_ms=wall_ms, device_ms=device_ms, kernels=launches,
+                groups_ms=groups,
                 top=[dict(name=n, ms_per_step=m, calls_per_step=c)
                      for n, m, c in top])
 
@@ -448,9 +1163,16 @@ def main(argv=None):
                     help="also write every number of the run to PATH as "
                          "JSON")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
-                    help="after the checks, trace STEPS decode steps with "
-                         "torch.profiler and print where the time goes")
+                    help="after the checks, trace STEPS training steps and "
+                         "STEPS decode steps with torch.profiler and print "
+                         "where the time goes")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                         f"{','.join(PHASES)} (default: all)")
     args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"--phases takes {','.join(PHASES)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -458,6 +1180,7 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     from paddle_tpu_torch.cuda_build import build
+    from paddle_tpu_torch.ops import KERNEL_LIBRARIES
     from paddle_tpu_torch.serving import attention as A
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -466,39 +1189,105 @@ def main(argv=None):
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}",
           flush=True)
-    build_s = build([A.KERNEL_LIBRARY])
+    build_s = build([A.KERNEL_LIBRARY, *KERNEL_LIBRARIES])
     print(f"kernels built from source in {build_s:.1f} s", flush=True)
 
     from paddle_tpu_torch.models import LlamaConfig
-    worst_err, timings = kernel_phase()
-    summary = engine_phase(LlamaConfig.llama2_7b(dtype="bfloat16"), smi,
-                           profile_steps=args.profile)
+    train_cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS,
+                                      dtype="bfloat16",
+                                      fuse_linear_cross_entropy=True)
+    res = {"card": smi, "torch": torch.__version__,
+           "cuda": torch.version.cuda, "build_s": build_s, "phase_s": {}}
 
-    main_t = timings["decode"]
-    kernels = [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/serving/csrc/ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/serving/attention.py:289",
-        "launches": summary["launches"],
-        "max_abs_err": worst_err,
-        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms"],
-        "shapes": timings,
-    }]
+    def phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["phase_s"][name] = time.perf_counter() - t0
+        print(f"phase {name}: {res['phase_s'][name]:.1f} s", flush=True)
+        return out
+
+    if "kernels" in phases:
+        res["k5"] = phase("kernels K5", kernel_phase)
+        res["fa"] = phase("kernels K1-K3", fa_phase)
+        res["adamw"] = phase("kernel K4", adamw_phase, train_cfg)
+    if "train" in phases:
+        res["train"] = phase("train", train_phase, train_cfg, smi,
+                             profile_steps=args.profile)
+        res["path"] = phase("kernel path vs plain path", path_compare_phase,
+                            LlamaConfig.llama2_7b(
+                                num_hidden_layers=2, dtype="bfloat16",
+                                fuse_linear_cross_entropy=True))
+    if "serve" in phases:
+        # the dense reference forward of the engine check is plain float32
+        # attention, so K5 is held against a plain reference, not K1
+        res["engine"] = phase("serve", engine_phase, LlamaConfig.llama2_7b(
+            dtype="bfloat16", use_flash_attention=False), smi,
+            profile_steps=args.profile)
+
+    kernels = kernel_rows(res)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(card=smi, torch=torch.__version__,
-                           cuda=torch.version.cuda, build_s=build_s,
-                           kernels=kernels, engine=summary), f, indent=1)
+            json.dump(dict(res, kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
+    if set(phases) != set(PHASES):
+        print(f"chip_smoke: ran only {args.phases}; no ok line", flush=True)
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+PHASES = ("kernels", "train", "serve")
+
+
+def kernel_rows(res):
+    """The ``kernels`` JSON rows: K5, K1, K2, K3, K4, each with its
+    launches on its path's counted run and this run's measurements."""
+    rows = []
+    k5 = res.get("k5")
+    if k5:
+        worst_err, timings = k5
+        t = timings["decode"]
+        rows.append(dict(
+            name="ragged_paged_attention", route="cuda",
+            source="paddle_tpu_torch/serving/csrc/ragged_paged_attention.cu",
+            replaces="paddle_tpu/serving/attention.py:289",
+            launches=res.get("engine", {}).get("launches"),
+            max_abs_err=worst_err, ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shapes=timings))
+    launches = res.get("train", {}).get("launches", {})
+    fa_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    for key, name, replaces, count in (
+            ("fwd", "flash_attention_fwd",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:540", "fwd_launches"),
+            ("dq", "flash_attention_bwd_dq",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:811", "dq_launches"),
+            ("dkv", "flash_attention_bwd_dkv",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:862", "dkv_launches")):
+        if "fa" in res:
+            rows.append(dict(name=name, route="cuda", source=fa_src,
+                             replaces=replaces,
+                             launches=launches.get(count),
+                             **_row_numbers(res["fa"][key])))
+    if "adamw" in res:
+        rows.append(dict(name="adamw_multi_tensor", route="cuda",
+                         source="paddle_tpu_torch/ops/csrc/adamw.cu",
+                         replaces="paddle_tpu/ops/pallas/_adamw_kernel.py:114",
+                         launches=launches.get("adamw_kernel_launches"),
+                         **_row_numbers(res["adamw"])))
+    return rows
+
+
+def _row_numbers(t):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {k: t[k] for k in keys}
 
 
 if __name__ == "__main__":

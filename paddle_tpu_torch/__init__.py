@@ -9,9 +9,16 @@ Device policy: every entry point runs on the CUDA card unless the caller
 passes ``device="cpu"``; without a card it raises rather than fall back
 to the host (:mod:`.device`).
 
-The first slice is serving: :class:`~.serving.ServingEngine` over
-:class:`~.models.LlamaForCausalLM`, with the ragged paged-attention
-kernel in ``serving/csrc/ragged_paged_attention.cu``.
+Slices so far:
+
+- serving: :class:`~.serving.ServingEngine` over
+  :class:`~.models.LlamaForCausalLM`, with the ragged paged-attention
+  kernel in ``serving/csrc/ragged_paged_attention.cu``;
+- training: :class:`~.hapi.Model` over the LLaMA with
+  :class:`~.models.LlamaPretrainingCriterion` and
+  :class:`~.optimizer.AdamW`, with the flash-attention kernels in
+  ``ops/csrc/flash_attention.cu`` and the multi-tensor AdamW kernel in
+  ``ops/csrc/adamw.cu``.
 """
 from .device import resolve_device, resolve_dtype
 

@@ -8,16 +8,19 @@ function, so ``nvcc`` compiles it in seconds without PyTorch's headers:
          -shared -Xcompiler -fPIC -o <lib>.so <source>.cu
 
 Libraries land in ``paddle_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never
-loaded. :func:`build` compiles several sources in parallel (one ``nvcc``
-process each, all started together); nothing is built at import.
+``.gitignore``) under a name that carries a hash of the source, of every
+local header it includes (``#include "..."``, followed recursively) and
+of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. :func:`build` compiles several sources in
+parallel (one ``nvcc`` process each, all started together); nothing is
+built at import.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +31,7 @@ __all__ = ["KernelLibrary", "build"]
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc():
@@ -55,10 +59,24 @@ class KernelLibrary:
         self._lib = None
         self.build_seconds = None
 
+    def sources(self):
+        """The source and the local headers it includes, recursively
+        (paths relative to the including file), in a stable order."""
+        seen, todo = [], [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in seen:
+                continue
+            seen.append(path)
+            for name in _LOCAL_INCLUDE.findall(path.read_text()):
+                todo.append((path.parent / name).resolve())
+        return seen
+
     @property
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in self.sources():
+            digest.update(path.read_bytes())
         return BUILD_DIR / f"lib{self.source.stem}-{digest.hexdigest()[:16]}.so"
 
     def _command(self, out):

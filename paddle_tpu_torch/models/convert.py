@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's LLaMA into the port.
+"""Carry weights between the JAX package's LLaMA and the port.
 
 ``paddle_tpu`` keeps a Linear weight ``[in, out]``; ``torch.nn.Linear``
 keeps ``[out, in]``. Every other tensor (embeddings, norm weights) has
@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_paddle_tpu"]
+__all__ = ["state_dict_from_paddle_tpu", "state_dict_to_paddle_tpu"]
 
 _LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
             "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
@@ -67,4 +67,29 @@ def state_dict_from_paddle_tpu(np_state: dict, cfg) -> dict:
         out[key] = t.T.contiguous() if _is_linear(key) else t
     if cfg.tie_word_embeddings:
         out["lm_head.weight"] = out["llama.embed_tokens.weight"]
+    return out
+
+
+def state_dict_to_paddle_tpu(state_dict: dict, cfg) -> dict:
+    """The inverse of :func:`state_dict_from_paddle_tpu`: the port's
+    ``state_dict()`` as float32 numpy arrays under the JAX model's keys
+    and layouts (bf16 weights widen exactly). Raises ``KeyError`` on a
+    missing or unexpected key and ``ValueError`` on a shape that does not
+    match ``cfg``."""
+    want = _expected_shapes(cfg)
+    have = set(state_dict)
+    if cfg.tie_word_embeddings:
+        have.discard("lm_head.weight")  # the embedding, shared
+    missing, extra = sorted(set(want) - have), sorted(have - set(want))
+    if missing or extra:
+        raise KeyError(f"state_dict mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    out = {}
+    for key, shape in want.items():
+        t = state_dict[key].detach().float().cpu()
+        arr = (t.T if _is_linear(key) else t).contiguous().numpy()
+        if arr.shape != shape:
+            raise ValueError(f"{key}: shape {arr.shape} in the JAX layout, "
+                             f"expected {shape} for this config")
+        out[key] = arr
     return out

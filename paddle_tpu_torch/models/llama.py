@@ -1,16 +1,23 @@
-"""LLaMA-2 family, inference only (counterpart:
-``paddle_tpu/models/llama.py``).
+"""LLaMA-2 family (counterpart: ``paddle_tpu/models/llama.py``).
 
 Module names mirror the JAX package (``llama.layers.0.self_attn.q_proj``
-...) so weights carry across key for key (``models/convert.py``). The
-dense :meth:`LlamaForCausalLM.forward` is the teacher-forced reference
-the serving engine's paged path is held against; its attention is plain
-float32 PyTorch. Serving runs the trunk through
-``serving/engine.py::_paged_forward`` instead, which reuses these
-modules' weights.
+...) so weights carry across key for key (``models/convert.py``).
 
-Configuration flags outside this slice (tensor, sequence and context
-parallelism, MoE, recompute, fused cross entropy in training) raise
+- Training: :class:`LlamaForCausalLM` with ``use_flash_attention`` runs
+  its attention through ``scaled_dot_product_attention`` (the kernels
+  K1-K3 on the card); with ``fuse_linear_cross_entropy`` a training
+  forward returns the marked final hidden state and
+  :class:`LlamaPretrainingCriterion` applies the head chunk by chunk with
+  the cross entropy (the ``[B, S, V]`` logits never exist at once).
+- ``use_flash_attention=False`` takes plain float32 attention (the JAX
+  package's ``_ref_attn_fn`` path): the dense reference the serving
+  engine's paged path is held against.
+- Serving runs the trunk through ``serving/engine.py::_paged_forward``,
+  which reuses these modules' weights.
+
+Configuration flags outside the ported slices (tensor, sequence and
+context parallelism, MoE, recompute; a sliding window on the flash path
+on the card, which needs the FlashMask arm of K6) raise
 ``NotImplementedError``; none is silently ignored.
 """
 from __future__ import annotations
@@ -18,14 +25,19 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, resolve_dtype
 from ..nn import RMSNorm
-from ..nn.functional import fused_rotary_position_embedding, swiglu
+from ..nn.functional import (fused_rotary_position_embedding,
+                             scaled_dot_product_attention, swiglu)
+from ..ops.flash_attention import _attention_ref
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP",
-           "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM"]
+           "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
+           "LlamaPretrainingCriterion", "count_params", "flops_per_token"]
 
 
 @dataclass
@@ -113,29 +125,34 @@ class LlamaAttention(nn.Module):
         self.o_proj = nn.Linear(h, h, **kw)
 
     def forward(self, x, position_ids):
-        """Dense causal (and, with ``sliding_window``, banded) GQA
-        attention over the whole sequence, scored in float32."""
+        """Causal GQA attention over the whole sequence: the flash kernels
+        when ``cfg.use_flash_attention``, else plain float32 attention
+        (banded with ``sliding_window``)."""
         b, s, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        g = nh // nkv
         q = self.q_proj(x).reshape(b, s, nh, hd)
         k = self.k_proj(x).reshape(b, s, nkv, hd)
         v = self.v_proj(x).reshape(b, s, nkv, hd)
         q, k = fused_rotary_position_embedding(
             q, k, position_ids=position_ids,
             rotary_emb_base=self.cfg.rope_theta)
-        qg = q.reshape(b, s, nkv, g, hd).float()
-        sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) \
-            * (1.0 / hd ** 0.5)
-        qpos = torch.arange(s, device=x.device)[:, None]
-        kpos = torch.arange(s, device=x.device)[None, :]
-        mask = kpos <= qpos
-        if self.cfg.sliding_window:
-            mask = mask & (kpos > qpos - int(self.cfg.sliding_window))
-        sc = sc.masked_fill(~mask, float("-inf"))
-        pr = torch.softmax(sc, dim=-1)
-        out = torch.einsum("bkgst,btkd->bskgd", pr, v.float())
-        return self.o_proj(out.reshape(b, s, nh * hd).to(x.dtype))
+        sw = self.cfg.sliding_window
+        if self.cfg.use_flash_attention and not sw:
+            out = scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               training=self.training)
+        else:
+            if sw and self.cfg.use_flash_attention and x.device.type != "cpu":
+                raise NotImplementedError(
+                    "sliding_window attention on the card runs on the "
+                    "FlashMask arm of the streamed forward K6, not ported "
+                    "yet; use_flash_attention=False takes plain attention")
+            band = None
+            if sw:
+                pos = torch.arange(s, device=x.device)
+                band = pos[None, :] > pos[:, None] - int(sw)
+            out = _attention_ref(q.float(), k.float(), v.float(),
+                                 mask=band, causal=True).to(x.dtype)
+        return self.o_proj(out.reshape(b, s, nh * hd))
 
 
 class LlamaMLP(nn.Module):
@@ -224,8 +241,144 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head.weight.device
 
     def forward(self, input_ids, position_ids=None):
+        h = self.llama(input_ids, position_ids)
         if self.cfg.fuse_linear_cross_entropy and self.training:
+            # the criterion applies the head chunk by chunk with the CE;
+            # the marker, not a shape test, tells it this is hidden
+            h._fused_hidden = True
+            return h
+        return self.lm_head(h)
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted causal-LM loss: position t predicts label t+1, the mean over
+    the labels that are not ``ignore_index``. With
+    ``cfg.fuse_linear_cross_entropy`` and a marked hidden state it is the
+    chunked head + cross entropy of :func:`_fused_ce`, which needs the
+    head weight: ``LlamaPretrainingCriterion(cfg).bind(model)``."""
+
+    def __init__(self, cfg: LlamaConfig = None, ignore_index=-100,
+                 lm_head_weight=None, model=None):
+        super().__init__()
+        if cfg is not None and getattr(cfg, "tensor_parallel", False):
             raise NotImplementedError(
-                "fused linear cross entropy (training) is not ported to "
-                "paddle_tpu_torch yet")
-        return self.lm_head(self.llama(input_ids, position_ids))
+                "the tensor-parallel criterion (ParallelCrossEntropy) is "
+                "not ported to paddle_tpu_torch yet")
+        if model is not None or (cfg is not None and getattr(
+                cfg, "moe_num_experts", 0)):
+            # model= only feeds the MoE aux loss in the JAX package
+            raise NotImplementedError(
+                "the MoE auxiliary loss (and the criterion's model=) is "
+                "not ported to paddle_tpu_torch yet; bind(model) takes "
+                "the head weight")
+        self.ignore_index = ignore_index
+        self.fuse = cfg is not None and getattr(
+            cfg, "fuse_linear_cross_entropy", False)
+        self.chunk = getattr(cfg, "loss_chunk_size", 1024) \
+            if cfg is not None else 1024
+        # a plain attribute: nn.Module would register the head weight as
+        # the criterion's own parameter
+        object.__setattr__(self, "_head_w", lm_head_weight)
+
+    def bind(self, model):
+        object.__setattr__(self, "_head_w", model.lm_head.weight)
+        return self
+
+    def forward(self, logits, labels):
+        labels = labels.long()
+        if self.fuse and getattr(logits, "_fused_hidden", False):
+            if self._head_w is None:
+                raise RuntimeError(
+                    "fuse_linear_cross_entropy needs the LM head weight: "
+                    "LlamaPretrainingCriterion(cfg).bind(model)")
+            return _fused_ce(logits, self._head_w, labels,
+                             self.ignore_index, int(self.chunk))
+        lg = logits[:, :-1, :]
+        lb = labels[:, 1:]
+        return F.cross_entropy(lg.reshape(-1, lg.shape[-1]), lb.reshape(-1),
+                               ignore_index=self.ignore_index)
+
+
+class _HeadF32(torch.autograd.Function):
+    """``h [..., H] @ w[V, H].T`` as float32 logits, the JAX head's
+    ``preferred_element_type=float32``: on the card a bf16/f16 GEMM
+    writes its float32 accumulator (``torch.mm(..., out_dtype=)``), on
+    the CPU both operands are widened. Backward rounds the float32
+    cotangent to the model dtype for its two GEMMs (what the TPU's
+    default-precision matmul does with it)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        h2 = h.reshape(-1, h.shape[-1])
+        if h.is_cuda:
+            out = torch.mm(h2, w.t(), out_dtype=torch.float32)
+        else:
+            out = torch.mm(h2.float(), w.float().t())
+        return out.view(*h.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(h.dtype)
+        gh = (g2 @ w).view(h.shape) if ctx.needs_input_grad[0] else None
+        gw = (g2.t() @ h.reshape(-1, h.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gh, gw
+
+
+def _head_logits(h, w):
+    if h.dtype == torch.float32:
+        return F.linear(h, w)
+    return _HeadF32.apply(h, w)
+
+
+def _chunk_loss(h_c, w, y_c, ignore):
+    """(summed NLL, count) of one chunk: float32 logits from the head
+    GEMM (:func:`_head_logits`) and the log-softmax in float32."""
+    lsm = torch.log_softmax(_head_logits(h_c, w), dim=-1)
+    live = y_c != ignore
+    safe = torch.where(live, y_c, torch.zeros_like(y_c))
+    nll = -lsm.gather(-1, safe[..., None])[..., 0]
+    m = live.float()
+    return (nll * m).sum(), m.sum()
+
+
+def _fused_ce(h, w, labels, ignore, chunk):
+    """Chunked head + cross entropy (the JAX package's ``_fused_ce_fn``):
+    drop the last position, cut the sequence into ``min(chunk, S - 1)``
+    pieces plus an uneven tail, and recompute each piece's ``[B, C, V]``
+    logits in backward (``torch.utils.checkpoint``), so one chunk's
+    logits are the most that live at once. Divides by the count of
+    labels that are not ignored."""
+    hq, yb = h[:, :-1, :], labels[:, 1:]
+    sm = hq.shape[1]
+    c = min(chunk, sm)
+    tot = h.new_zeros((), dtype=torch.float32)
+    cnt = h.new_zeros((), dtype=torch.float32)
+    for lo in range(0, sm, c):
+        s_, c_ = checkpoint(_chunk_loss, hq[:, lo:lo + c], w,
+                            yb[:, lo:lo + c], ignore, use_reentrant=False,
+                            preserve_rng_state=False)
+        tot, cnt = tot + s_, cnt + c_
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def count_params(cfg: LlamaConfig) -> int:
+    h, m, L, v = (cfg.hidden_size, cfg.intermediate_size,
+                  cfg.num_hidden_layers, cfg.vocab_size)
+    kv = (cfg.num_key_value_heads or cfg.num_attention_heads)
+    hd = h // cfg.num_attention_heads
+    attn = h * h + 2 * h * kv * hd + h * h
+    mlp = 3 * h * m
+    per_layer = attn + mlp + 2 * h
+    return v * h + L * per_layer + h + (0 if cfg.tie_word_embeddings
+                                        else v * h)
+
+
+def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Training FLOPs a token, about 6 N plus the attention term (for
+    MFU)."""
+    n = count_params(cfg)
+    attn_flops = 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len
+    return 6.0 * n + attn_flops

@@ -1,6 +1,7 @@
 """The LLaMA trunk's elementwise functions, in PyTorch.
 
-Counterparts: ``paddle_tpu/nn/functional/__init__.py::rms_norm`` and
+Counterparts: ``paddle_tpu/nn/functional/__init__.py::rms_norm`` /
+``scaled_dot_product_attention`` and
 ``paddle_tpu/incubate/nn/functional/__init__.py::swiglu`` /
 ``fused_rotary_position_embedding``. Each keeps the JAX package's
 precision order so the two agree in float32 and round alike in bf16.
@@ -10,7 +11,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "swiglu", "fused_rotary_position_embedding"]
+from ..ops.flash_attention import flash_attention_bshd
+
+__all__ = ["rms_norm", "swiglu", "fused_rotary_position_embedding",
+           "scaled_dot_product_attention"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -51,3 +55,15 @@ def fused_rotary_position_embedding(q, k=None, *, position_ids,
                          dim=-1).to(x.dtype)
 
     return rope(q), (rope(k) if k is not None else None)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """``[B, S, H, D]`` attention (key/value may carry fewer heads), the
+    JAX package's layout: :func:`~..ops.flash_attention.
+    flash_attention_bshd`, the kernels K1-K3 on the card. A mask or
+    dropout in training raises ``NotImplementedError`` (not ported)."""
+    return flash_attention_bshd(query, key, value, mask=attn_mask,
+                                causal=is_causal,
+                                dropout_p=dropout_p if training else 0.0)

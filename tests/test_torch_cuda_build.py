@@ -1,7 +1,7 @@
 """paddle_tpu_torch.cuda_build on the CPU, with a stand-in for nvcc: the
-command line it runs, where a library lands, that an edited source gets
-a new library, and that a failed compile raises with the compiler's
-output after every started compile has finished."""
+command line it runs, where a library lands, that an edited source or
+local header gets a new library, and that a failed compile raises with
+the compiler's output after every started compile has finished."""
 import stat
 import sys
 
@@ -62,6 +62,22 @@ def test_an_edited_source_gets_a_new_library(tmp_path, fake_nvcc):
     first = lib.path
     lib.source.write_text("extern \"C\" int f() { return 1; }")
     assert lib.path != first and lib.path.name.startswith("libk-")
+
+
+def test_an_edited_local_header_gets_a_new_library(tmp_path, fake_nvcc):
+    fake_nvcc()
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "inc" / "common.cuh").write_text("#define X 1\n")
+    (tmp_path / "inc" / "deeper.cuh").write_text("#define Y 1\n")
+    (tmp_path / "inc" / "common.cuh").write_text(
+        '#include "deeper.cuh"\n#define X 1\n')
+    lib = _source(tmp_path, "k", '#include <cuda_runtime.h>\n'
+                  '#include "inc/common.cuh"\nextern "C" int f();\n')
+    assert [p.name for p in lib.sources()] == ["k.cu", "common.cuh",
+                                               "deeper.cuh"]
+    first = lib.path
+    (tmp_path / "inc" / "deeper.cuh").write_text("#define Y 2\n")
+    assert lib.path != first
 
 
 def test_a_failed_compile_raises_after_every_compile(tmp_path, fake_nvcc):

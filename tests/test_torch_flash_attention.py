@@ -1,0 +1,144 @@
+"""paddle_tpu_torch's flash attention (the plain versions its CPU path
+runs) against paddle_tpu's Pallas kernels in interpret mode
+(``fa_forward`` / ``fa_backward`` of ``ops/pallas/_fa_kernel.py``, 128
+blocks) and against ``jax.vjp`` of its differentiable cores, on the same
+numpy inputs.
+
+Cases: causal and not, GQA 4:2, head_dim 64, S 256; the lse (the JAX
+``[B*H, S, 128]`` lane layout compared as ``lse_l[:, :, 0]``) and the
+``dlse`` fold. Tolerance: float32, 1e-5 absolute on outputs and lse,
+1e-4 on gradients (sums of 256 products taken in another order). The
+CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
+them against these plain versions).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import _fa_kernel as JK
+from paddle_tpu.ops.pallas import flash_attention as JFA
+from paddle_tpu_torch.ops import fa_kernel as TK
+from paddle_tpu_torch.ops import flash_attention as TFA
+
+ATOL = 1e-5
+GRAD_ATOL = 1e-4
+B, S, H, HKV, D = 1, 256, 4, 2, 64
+
+
+@pytest.fixture(autouse=True)
+def _few_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(seed=0, s=S):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, s, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, s, HKV, D)).astype(np.float32)
+    v = rng.standard_normal((B, s, HKV, D)).astype(np.float32)
+    do = rng.standard_normal((B, s, H, D)).astype(np.float32)
+    dlse = rng.standard_normal((B, H, s)).astype(np.float32)
+    return q, k, v, do, dlse
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+def _close(got, want, atol, name):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=atol,
+                               rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("causal,with_dlse", [(False, False),
+                                              (True, True)])
+def test_forward_and_backward_match_the_pallas_kernels(causal, with_dlse):
+    q, k, v, do, dlse = _inputs(2)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = JK.fa_forward(jq, jk, jv, causal=causal, return_lse=True,
+                             interpret=True)
+    want = JK.fa_backward(jq, jk, jv, jo, jlse, jdo, causal=causal,
+                          interpret=True,
+                          dlse=(jnp.asarray(dlse.reshape(B * H, S))
+                                if with_dlse else None))
+    tq, tk, tv, tdo, tdlse = _t(q, k, v, do, dlse)
+    o, lse = TK.fa_forward(tq, tk, tv, causal=causal, return_lse=True)
+    _close(o, jo, ATOL, "out")
+    _close(lse, np.asarray(jlse)[:, :, 0].reshape(B, H, S), ATOL, "lse")
+    got = TK.fa_backward(tq, tk, tv, o, lse, tdo, causal=causal,
+                         dlse=tdlse if with_dlse else None)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert tuple(g.shape) == w.shape, name
+        _close(g, w, GRAD_ATOL, name)
+
+
+def test_plain_backward_is_the_vjp_of_the_plain_forward():
+    """The closed form from the saved lse equals autograd through the
+    oracle, with both cotangents (out and lse) in play."""
+    q, k, v, do, dlse = _inputs(3, s=64)
+    tq, tk, tv, tdo, tdlse = _t(q, k, v, do, dlse)
+    xs = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out, lse = TK.fa_forward_plain(*xs, causal=True, return_lse=True)
+    want = torch.autograd.grad((out, lse), xs, (tdo, tdlse))
+    got = TK.fa_backward_plain(tq, tk, tv, out.detach(), lse.detach(), tdo,
+                               causal=True, dlse=tdlse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close(g, w, GRAD_ATOL, name)
+
+
+def test_flash_attention_bshd_grads_match_jax_vjp():
+    q, k, v, do, _ = _inputs(4)
+    jout, vjp = jax.vjp(lambda a, b, c: JFA._flash_core(a, b, c, True,
+                                                        None),
+                        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    xs = [x.requires_grad_() for x in _t(q, k, v)]
+    out = TFA.flash_attention_bshd(*xs, causal=True)
+    out.backward(torch.from_numpy(do))
+    _close(out.detach(), jout, ATOL, "out")
+    for name, x, w in zip(("dq", "dk", "dv"), xs, want):
+        _close(x.grad, w, GRAD_ATOL, name)
+
+
+def test_flash_core_lse_takes_both_cotangents():
+    """Its backward folds dlse (K2/K3's delta - dlse) and equals autograd
+    through the oracle ``_attention_ref_lse``."""
+    q, k, v, do, dlse = _inputs(5, s=96)
+    ref = [x.requires_grad_() for x in _t(q, k, v)]
+    want = torch.autograd.grad(TFA._attention_ref_lse(*ref, causal=True),
+                               ref, _t(do, dlse))
+    xs = [x.requires_grad_() for x in _t(q, k, v)]
+    out, lse = TFA.flash_core_lse(*xs, True, None)
+    torch.autograd.backward((out, lse), _t(do, dlse))
+    for name, x, w in zip(("dq", "dk", "dv"), xs, want):
+        _close(x.grad, w, GRAD_ATOL, name)
+
+
+def test_no_grad_forward_writes_no_lse_and_counts_plain_calls():
+    q, k, v, _, _ = _inputs(6, s=64)
+    TFA.reset_dispatch_stats()
+    with torch.no_grad():
+        out = TFA.flash_attention_bshd(*_t(q, k, v), causal=True)
+    assert isinstance(out, torch.Tensor) and out.shape == (B, 64, H, D)
+    stats = TFA.dispatch_stats()
+    assert stats["plain_fwd_calls"] == 1
+    assert stats["fwd_launches"] == stats["dq_launches"] == 0
+
+
+def test_bf16_plain_forward_rounds_the_probabilities_like_the_oracle():
+    q, k, v, _, _ = _inputs(7, s=64)
+    tq, tk, tv = (x.bfloat16() for x in _t(q, k, v))
+    got = TK.fa_forward(tq, tk, tv, causal=True)
+    want = JFA._attention_ref(*(jnp.asarray(x, jnp.bfloat16)
+                                for x in (q, k, v)), causal=True)
+    assert got.dtype == torch.bfloat16
+    # one bf16 rounding of outputs a few float32 ulps apart
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2 ** -7,
+                               atol=1e-3)

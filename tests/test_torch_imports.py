@@ -2,8 +2,11 @@
 
 The port imports neither JAX nor the JAX package, not even a module of
 it that does not itself import JAX; ``chip_smoke.py`` neither. Its entry
-points run on the CUDA card unless the caller passes ``device="cpu"``,
-and without a card they raise instead of falling back to the host.
+points run on the CUDA card unless the caller passes ``device="cpu"``
+(or CPU tensors), and without a card they raise instead of falling back
+to the host. A kernel wrapper takes its plain version only for a tensor
+on the CPU; any other tensor goes to the CUDA kernel, which refuses a
+tensor that is not on a CUDA device.
 """
 import ast
 import pathlib
@@ -12,7 +15,14 @@ import pytest
 import torch
 
 from paddle_tpu_torch import resolve_device
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.hapi import Model
+from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                     LlamaPretrainingCriterion)
+from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
+from paddle_tpu_torch.ops.flash_attention import (flash_attention_bshd,
+                                                  flash_core_lse)
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import PagedKVCache, ServingEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -51,7 +61,12 @@ def test_the_check_matches_module_names_exactly():
     assert not _forbidden("paddle_tpu_torch")
     assert not _forbidden("paddle_tpu_torch.serving.engine")
     assert not _forbidden("jaxtyping")
-    assert any(p.name == "engine.py" for p in SOURCES)
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    for mod in ("serving/engine.py", "ops/fa_kernel.py",
+                "ops/flash_attention.py", "ops/adamw_kernel.py",
+                "optimizer/optimizer.py", "optimizer/optimizers.py",
+                "optimizer/lr.py", "hapi/model.py", "models/llama.py"):
+        assert f"paddle_tpu_torch/{mod}" in names, mod
 
 
 @pytest.fixture
@@ -83,3 +98,87 @@ def test_engine_refuses_a_model_on_another_device():
     model = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu").to("meta")
     with pytest.raises(ValueError, match="lies on"):
         ServingEngine(model, num_pages=8, device="cpu")
+
+
+def test_training_entry_points_run_on_cpu_tensors_without_a_card(no_cuda):
+    cfg = LlamaConfig(**TINY, fuse_linear_cross_entropy=True)
+    with pytest.raises(RuntimeError):
+        LlamaForCausalLM(cfg)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    m = Model(model)
+    m.prepare(AdamW(1e-3, parameters=model.parameters()),
+              LlamaPretrainingCriterion(cfg).bind(model))
+    ids = torch.arange(12).reshape(1, 2, 6) % TINY["vocab_size"]
+    losses = m.train_batch_loop([ids], [ids])
+    assert losses.shape == (1,) and torch.isfinite(losses).all()
+    q = torch.randn(1, 8, 4, 16)
+    assert flash_attention_bshd(q, q, q, causal=True).device.type == "cpu"
+
+
+def _meta(*shape):
+    return torch.empty(*shape, device="meta")
+
+
+def test_kernel_wrappers_refuse_tensors_off_a_card():
+    """A tensor that is not on the CPU goes to the CUDA kernel, never to
+    the plain version, and the wrapper refuses one not on a CUDA card."""
+    q = _meta(1, 8, 4, 64)
+    lse = _meta(1, 4, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        fa_kernel.fa_forward(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        fa_kernel.fa_backward(q, q, q, q, lse, q, causal=True)
+    for one_kernel in (fa_kernel.fa_dq_cuda, fa_kernel.fa_dkv_cuda):
+        with pytest.raises(ValueError, match="needs CUDA"):
+            one_kernel(q, q, q, q, lse, lse, causal=True)
+    p = torch.nn.Parameter(_meta(10))
+    state = {"moment1": _meta(10), "moment2": _meta(10)}
+    with pytest.raises(ValueError, match="K4 needs CUDA"):
+        adamw_kernel.adamw_update([p], [_meta(10)], [state], lr=1e-3,
+                                  step=1, b1=0.9, b2=0.999, eps=1e-8,
+                                  wd=0.0, decoupled=True)
+
+
+@pytest.mark.parametrize("kwargs,missing", [
+    (dict(mask=torch.ones(8, 8, dtype=torch.bool)), "attention mask"),
+    (dict(q_seg=torch.zeros(1, 8, dtype=torch.int32),
+          kv_seg=torch.zeros(1, 8, dtype=torch.int32)), "segment ids"),
+    (dict(dropout_p=0.1), "dropout"),
+    (dict(return_probs=True), "return_probs")])
+def test_flash_attention_refuses_the_unported_arms(kwargs, missing):
+    q = torch.randn(1, 8, 4, 16)
+    with pytest.raises(NotImplementedError, match=missing):
+        flash_attention_bshd(q, q, q, causal=True, **kwargs)
+
+
+def test_cross_length_and_sdpa_options_are_refused_not_dropped():
+    q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 12, 4, 16)
+    with pytest.raises(NotImplementedError, match="K6"):
+        flash_attention_bshd(q, k, k)
+    with pytest.raises(NotImplementedError, match="K6"):
+        flash_core_lse(q, k, k, False, None)
+    with pytest.raises(NotImplementedError, match="mask"):
+        scaled_dot_product_attention(q, q, q, attn_mask=torch.zeros(8, 8))
+    with pytest.raises(NotImplementedError, match="dropout"):
+        scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    out = scaled_dot_product_attention(q, q, q, dropout_p=0.1,
+                                       training=False, is_causal=True)
+    assert out.shape == q.shape
+
+
+def test_arguments_the_port_would_not_read_are_refused():
+    """No argument is accepted and then ignored: ``Model(inputs=,
+    labels=)`` (fit's batch split), the criterion's ``model=`` (the MoE
+    aux loss) raise; ``use_multi_tensor`` is not an argument at all (the
+    card's step is always the multi-tensor kernel)."""
+    from paddle_tpu_torch.optimizer import Adam
+    net = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
+    for kw in (dict(inputs=[object()]), dict(labels=[object()])):
+        with pytest.raises(NotImplementedError, match="fit"):
+            Model(net, **kw)
+    with pytest.raises(NotImplementedError, match="model="):
+        LlamaPretrainingCriterion(LlamaConfig(**TINY), model=net)
+    with pytest.raises(TypeError):
+        Adam(1e-3, parameters=net.parameters(), use_multi_tensor=True)
+    assert LlamaPretrainingCriterion(LlamaConfig(**TINY)).bind(net) \
+        is not None

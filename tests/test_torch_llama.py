@@ -19,6 +19,7 @@ from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                     LlamaPretrainingCriterion,
                                      state_dict_from_paddle_tpu)
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.nn import functional as TF
@@ -153,11 +154,19 @@ def test_unported_config_flags_raise(flag):
 
 
 def test_fused_cross_entropy_training_raises():
+    """A fused-CE training forward returns the marked hidden state (no
+    logits); the criterion raises until it is bound to the head weight."""
     cfg = LlamaConfig(**{**TINY, "fuse_linear_cross_entropy": True})
     m = LlamaForCausalLM(cfg, device="cpu")
     m.train()
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros(1, 4, dtype=torch.long))
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    hidden = m(ids)
+    assert hidden._fused_hidden and hidden.shape == (1, 4, TINY[
+        "hidden_size"])
+    with pytest.raises(RuntimeError, match="bind"):
+        LlamaPretrainingCriterion(cfg)(hidden, ids)
+    m.eval()
+    assert m(ids).shape == (1, 4, TINY["vocab_size"])
 
 
 def test_presets_match_jax():
