@@ -9,16 +9,23 @@ Phases, each of which passes or ends the script with a non-zero code:
 1. The card's name and power limit, the torch/CUDA versions, and the
    build of every kernel from the sources in this checkout (one ``nvcc``
    per source, all started together).
-2. Kernels: each hand-written kernel (K5 ragged paged attention, K1-K3
-   flash attention forward / dq / dk-dv, K4 multi-tensor AdamW) against
-   its plain PyTorch version on the card, at the shapes the serving and
-   training paths give it and at the other arms it takes, with the
-   stated tolerance (flash attention element by element, and planted
-   faults must fail the same comparison; AdamW's bf16 params exactly
-   their masters rounded); its time beside the plain version's, one
-   PyTorch library call's (a yardstick the port never calls) and the
+2. ``kernels``: each hand-written kernel (K5 ragged paged attention,
+   K1-K3 flash attention forward / dq / dk-dv, K4 multi-tensor AdamW)
+   against its plain PyTorch version on the card, at the shapes the
+   serving and training paths give it and at the other arms it takes,
+   with the stated tolerance (flash attention element by element, and
+   planted faults must fail the same comparison; AdamW's bf16 params
+   exactly their masters rounded); its time beside the plain version's,
+   one PyTorch library call's (a yardstick the port never calls) and the
    card's bound.
-3. Training: ``Model.train_batch_loop`` over ``LlamaForCausalLM(
+3. ``masked``: K6 (the streamed masked forward) and the masked arms of
+   K2/K3 the same way, at B 1, S 4096, H 32 over 8 kv heads with the
+   window cut to 1024: the window, C=1 documents with the window, a C=2
+   band with dead rows, C=4, the additive mask in two broadcast forms,
+   causal Sq 1024 against Sk 3072, float32, D 64 and D 256; dead rows
+   exact; five planted faults rejected; timed at Mistral's training
+   shape (B 2, S 8192, window 4096).
+4. ``train``: ``Model.train_batch_loop`` over ``LlamaForCausalLM(
    LlamaConfig.llama2_7b(num_hidden_layers=8, dtype="bfloat16",
    fuse_linear_cross_entropy=True))`` at full width, batch 4 x 2048
    tokens, ``AdamW(1e-4, multi_precision=True)``, random weights and
@@ -29,7 +36,19 @@ Phases, each of which passes or ends the script with a non-zero code:
    be finite, start where random logits of the init's scale put them and
    fall. Then the same 2-layer run through the kernels and through the
    plain versions (patched in here) must agree loss for loss.
-4. Engine: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
+5. ``mistral``: the same over ``LlamaConfig.mistral_7b(
+   num_hidden_layers=8, ...)`` (GQA 32:8, FFN 14336, the 4096-token
+   sliding window), batch 2 x 8192: K6, K2 and K3 once per layer and
+   step, K1 never.
+6. ``packed``: that model three steps by hand on packed documents
+   (lengths 128-4096 from a seed filling each 8192-token row, C=1
+   ``attn_mask_startend_row_indices``, position ids restarting at each
+   document); then at 2 layers one packed row of three documents against
+   each document run alone, summed token NLL.
+7. ``mistral_path``: 2 Mistral layers at B 1 x S 4096, the window cut to
+   1024, through the kernels and through the plain versions: the losses
+   must agree.
+8. ``serve``: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
    llama2_7b(dtype="bfloat16", use_flash_attention=False))`` at full
    width and depth, random weights from a seed, answers 8 requests.
    Every request must finish with its token count; K5 must have
@@ -40,8 +59,8 @@ Phases, each of which passes or ends the script with a non-zero code:
 The last lines are the ``kernels`` JSON, the card's name and power limit
 as ``nvidia-smi`` prints them, and ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA device. ``--phases`` runs a subset (a
-comma-separated list of ``kernels,train,serve``) and then prints no
-``ok`` line.
+comma-separated list of the phase names above) and then prints no ``ok``
+line.
 """
 from __future__ import annotations
 
@@ -327,19 +346,21 @@ def fa_work(b, s, h, hkv, d, causal, itemsize):
 FA_NAMES = ("out", "lse", "dq", "dk", "dv")
 
 
-def fa_term_scales(q, k, v, do, lse, delta, causal):
+def fa_term_scales(q, k, v, do, lse, delta, causal, mask=None, fm=()):
     """sigma of each element of out, dq, dk and dv: the root sum of
     squares of the products the kernels sum into it (p v, ds k, ds q,
-    p dO), in float32 from the plain version's lse and delta."""
+    p dO), in float32 from the plain version's lse and delta, under the
+    same masking."""
     import torch
     from paddle_tpu_torch.ops import fa_kernel as FK
 
-    b, s, h, d = q.shape
+    b, _, h, d = q.shape
+    s = k.shape[1]
     g = h // k.shape[2]
     sc = d ** -0.5
     kf, vf = (FK._repeat_kv(x, g).float() for x in (k, v))
     qf, dof = q.float(), do.float()
-    sco = FK._scores(qf, kf, causal, sc)
+    sco = FK._scores(qf, kf, sc, causal, mask, fm)
     p = torch.where(torch.isfinite(sco), torch.exp(sco - lse[..., None]),
                     torch.zeros_like(sco))
     del sco
@@ -377,12 +398,18 @@ def fa_limits(name, want, sigma):
 def fa_compare(got, want, sigma):
     """{name: (ratio, max abs error)} over matching dicts of tensors;
     ratio = max over elements of |got - want| / (atol + rtol |want|),
-    so a tensor passes at ratio <= 1."""
+    so a tensor passes at ratio <= 1. Where want is -inf (a dead row's
+    lse) got must be -inf too."""
+    import torch
     out = {}
     for name, w in want.items():
         rtol, atol = fa_limits(name, w, sigma)
-        d = (got[name].float() - w.float()).abs()
-        lim = (atol + rtol * w.float().abs()).clamp_min(1e-30)
+        g = got[name].float()
+        # equal values (a dead row's -inf lse on both sides) differ by 0
+        d = torch.where(g == w.float(), 0.0, (g - w.float()).abs())
+        wf = w.float()
+        lim = (atol + rtol * torch.where(torch.isfinite(wf), wf.abs(), 0.0)
+               ).clamp_min(1e-30)
         out[name] = ((d / lim).max().item(), d.max().item())
     return out
 
@@ -559,6 +586,385 @@ def fa_phase(dev="cuda"):
           "dq, dk and dv together", flush=True)
     rows["checks"] = readings
     return rows
+
+
+# -- the streamed masked forward (K6) and the masked arms of K2/K3 -----------
+
+# Mistral-7B's attention at the training step: batch 2 x 8192 tokens, 32
+# query heads over 8 kv heads, its 4096-token window (window_size 4095)
+MISTRAL_BATCH, MISTRAL_SEQ, MISTRAL_WINDOW = 2, 8192, 4096
+MASKED_TRAIN_SHAPE = (MISTRAL_BATCH, MISTRAL_SEQ, 32, 8, HEAD_DIM)
+# cases (a)-(h): B 1, S 4096, the window cut to 1024 so that it bites at
+# that length; the training shape itself is checked after them, one batch
+# row of the plain versions at a time
+MASKED_S, MASKED_WINDOW = 4096, 1024
+INT32_MAX = 2 ** 31 - 1
+# (name, (B, Sq, Sk, H, HKV, D), dtype, causal, masking)
+MASKED_CHECKS = [
+    ("(a) window", (1, MASKED_S, MASKED_S, 32, 8, 128), "bfloat16", True,
+     "window"),
+    ("(b) C=1 documents + window", (1, MASKED_S, MASKED_S, 32, 8, 128),
+     "bfloat16", True, "documents"),
+    ("(c) C=2 per-head band, dead rows", (1, MASKED_S, MASKED_S, 32, 8, 128),
+     "bfloat16", True, "band"),
+    ("(d) C=4 two bands", (1, MASKED_S, MASKED_S, 32, 8, 128), "bfloat16",
+     False, "two bands"),
+    ("(e) mask [B,1,Sq,Sk]", (2, MASKED_S, MASKED_S, 32, 8, 128), "bfloat16",
+     True, "mask B1"),
+    ("(e) mask [1,H,Sq,Sk]", (1, MASKED_S, MASKED_S, 32, 8, 128), "bfloat16",
+     True, "mask 1H"),
+    ("(f) causal Sq 1024 Sk 3072", (1, 1024, 3072, 32, 8, 128), "bfloat16",
+     True, "none"),
+    ("(g) window float32", (1, MASKED_S, MASKED_S, 32, 8, 128), "float32",
+     True, "window"),
+    ("(h) window D 64", (1, MASKED_S, MASKED_S, 32, 8, 64), "bfloat16", True,
+     "window"),
+    ("(h) window D 256", (1, MASKED_S, MASKED_S, 32, 8, 256), "bfloat16",
+     True, "window"),
+]
+
+
+def window_bands(sk, window, dev, sq=None):
+    """The sliding window as FlashMask bands ``[1, 1, Sk]`` int32: each
+    query sees itself and the ``window - 1`` keys before it, so key j
+    masks the rows from ``j + window - (Sk - Sq)`` on
+    (``flashmask_attention``'s fold of ``window_size = window - 1``)."""
+    import torch
+    sq = sk if sq is None else sq
+    start = torch.clamp(torch.arange(sk, dtype=torch.int32, device=dev)
+                        + window - (sk - sq), min=0)[None, None]
+    return start, torch.full_like(start, INT32_MAX)
+
+
+def doc_ends(lengths_rows, s, dev):
+    """C=1 FlashMask starts ``[B, 1, S]``: the end of key j's document,
+    for rows of packed document lengths."""
+    import torch
+    ends = torch.zeros(len(lengths_rows), 1, s, dtype=torch.int32)
+    for b, lengths in enumerate(lengths_rows):
+        lo = 0
+        for n in lengths:
+            ends[b, 0, lo:lo + n] = lo + n
+            lo += n
+    return ends.to(dev)
+
+
+def masked_case(kind, b, sq, sk, h, seed, dev):
+    """(mask, fm) of one masked check, from a seed."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    if kind == "window":
+        return None, window_bands(sk, MASKED_WINDOW, dev, sq)
+    if kind == "documents":
+        lens = [n * sk // 4096 for n in (700, 1500, 1200)]
+        ends = doc_ends([lens + [sk - sum(lens)]], sk, dev)
+        start, end = window_bands(sk, MASKED_WINDOW, dev)
+        return None, (torch.minimum(ends, start), end)
+    if kind == "band":
+        start = torch.randint(0, sk, (b, h, sk), generator=g,
+                              dtype=torch.int32)
+        end = start + torch.randint(0, sk // 2, (b, h, sk), generator=g,
+                                    dtype=torch.int32)
+        start[:, :, :64], end[:, :, :64] = 0, 64   # rows 0..63 see nothing
+        return None, (start.to(dev), end.to(dev))
+    if kind == "two bands":
+        w = sk // 8
+        lts = torch.randint(0, sk - w, (b, h, sk), generator=g,
+                            dtype=torch.int32)
+        lte = lts + torch.randint(1, w, (b, h, sk), generator=g,
+                                  dtype=torch.int32)
+        uts = torch.randint(sk - w, sk, (b, h, sk), generator=g,
+                            dtype=torch.int32)
+        return None, tuple(x.to(dev) for x in (lts, lte, uts, uts + w // 8))
+    if kind.startswith("mask"):
+        shape = (b, 1, sq, sk) if kind == "mask B1" else (1, h, sq, sk)
+        m = torch.randn(shape, generator=g)
+        m[..., 100:140, :] = float("-inf")     # dead rows
+        m[..., :, 300:400] = float("-inf")
+        return m.to(dev), ()
+    return None, ()
+
+
+def masked_faults(q, k, v, do, causal, fm, want, tile=64):
+    """What the masked checks must reject: the plain outputs as a kernel
+    with one fault would give them (case (a) and, for the K3 row fault,
+    case (c) with bands that vary by head)."""
+    import torch
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    def fwd(**kw):
+        out, lse = FK.fa_forward_plain(q, k, v, causal=causal,
+                                       return_lse=True, **kw)
+        return {"out": out, "lse": lse}
+
+    def bwd(names, **kw):
+        grads = FK.fa_backward_plain(q, k, v, want["out"], want["lse"], do,
+                                     causal=causal, **kw)
+        return {n: t for n, t in zip(("dq", "dk", "dv"), grads)
+                if n in names}
+    faults = []
+    if fm[0].shape[1] == 1:          # the window: case (a)
+        s = q.shape[1]
+        skip = torch.zeros(1, 1, s, s, device=q.device)
+        q0 = s // 2
+        k0 = q0 - MASKED_WINDOW // 2          # inside the window
+        skip[..., q0:q0 + tile, k0:k0 + tile] = float("-inf")
+        faults += [
+            ("K6 ignores the bands", fwd()),
+            ("K6 one column off at the window edge",
+             fwd(fm=(fm[0] + 1, fm[1]))),
+            ("K6 skips a live tile", fwd(fm=fm, mask=skip)),
+            ("K2 and K3 ignore the bands", bwd(("dq", "dk", "dv")))]
+    else:                            # per-head bands: case (c)
+        h, g = q.shape[2], q.shape[2] // k.shape[2]
+        kv_row = torch.arange(h, device=q.device) // g
+        faults.append(("K3 takes the kv head's band row",
+                       bwd(("dk", "dv"), fm=tuple(x[:, kv_row] for x in fm))))
+    return faults
+
+
+def masked_work(b, sq, sk, h, hkv, d, pairs, itemsize, n_fm=2):
+    """(bytes, flops) of K6, K2 and K3 on ``pairs`` live (row, key) pairs:
+    each input read once and each output written once, the bands
+    ([n_fm, 1, 1, Sk] int32) with them."""
+    qo = b * sq * h * d * itemsize
+    kv = b * sk * hkv * d * itemsize
+    rows = 4 * b * h * sq
+    bands = 4 * n_fm * sk
+    return {"stream": (2 * qo + 2 * kv + rows + bands, 4 * d * pairs),
+            "dq": (3 * qo + 2 * kv + 2 * rows + bands, 6 * d * pairs),
+            "dkv": (2 * qo + 4 * kv + 2 * rows + bands, 8 * d * pairs)}
+
+
+def window_pairs(s, window):
+    """Live (row, key) pairs of one head under causal attention with a
+    window: row r sees min(r + 1, window) keys."""
+    return sum(min(r + 1, window) for r in range(s))
+
+
+def masked_check(name, q, k, v, do, kw, got, want):
+    """Holds one masked case's kernel outputs ``got`` against the plain
+    versions' ``want`` (dicts over :data:`FA_NAMES`): finite, dead rows
+    exactly 0 in out and dq and -inf in the lse, every element within
+    :func:`fa_limits`. Returns (readings, {name: (ratio, max abs err)},
+    sigma)."""
+    import torch
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    for n, t in got.items():
+        if n != "lse" and not torch.isfinite(t.float()).all():
+            raise AssertionError(f"{name}: kernel {n} not finite")
+    dead = torch.isneginf(want["lse"])                     # [B, H, Sq]
+    n_dead = int(dead.sum())
+    if n_dead and not (torch.isneginf(got["lse"][dead]).all()
+                       and (got["out"].transpose(1, 2)[dead] == 0).all()
+                       and (got["dq"].transpose(1, 2)[dead] == 0).all()):
+        raise AssertionError(f"{name}: a dead row is not exactly 0 "
+                             "(out, dq) and -inf (lse)")
+    sigma = (fa_term_scales(q, k, v, do, want["lse"],
+                            FK._delta(want["out"], do, None), kw["causal"],
+                            kw["mask"], kw["fm"])
+             if q.dtype == torch.bfloat16 else None)
+    cmp = fa_compare(got, want, sigma)
+    readings = {n: dict(ratio=r, max_abs_err=e) for n, (r, e) in cmp.items()}
+    readings["dead_rows"] = n_dead
+    bad = {n: r for n, (r, _) in cmp.items() if not r <= 1.0}
+    if bad:
+        raise AssertionError(f"{name}: past the tolerance (ratio > 1): "
+                             f"{bad}; readings {readings}")
+    return readings, cmp, sigma
+
+
+def masked_train_cases(dev):
+    """(name, fm) of the two band forms the Mistral paths give K6, K2 and
+    K3 at MASKED_TRAIN_SHAPE: the window, and the packed phase's
+    documents (its rows, numpy seed 3) folded into the window."""
+    import numpy as np
+    import torch
+    s = MASKED_TRAIN_SHAPE[1]
+    start, end = window_bands(s, MISTRAL_WINDOW, dev)
+    rng = np.random.default_rng(3)
+    ends = doc_ends([doc_lengths(rng, s) for _ in range(MISTRAL_BATCH)], s,
+                    dev)
+    return [(f"Mistral window {MISTRAL_WINDOW}", (start, end)),
+            ("packed documents + window", (torch.minimum(ends, start), end))]
+
+
+def masked_fa_phase(dev="cuda"):
+    """K6 and the masked arms of K2/K3 against their plain versions on the
+    card, element by element (:func:`fa_limits`), dead rows exact; planted
+    faults rejected; then at the Mistral training shape (the window and
+    the packed documents) held against the plain versions one batch row
+    at a time, and timed beside the bound, the plain version and SDPA's
+    memory-efficient backend with the boolean band mask."""
+    import torch
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    readings = {}
+    for i, (name, (b, sq, sk, h, hkv, d), dtype, causal,
+            kind) in enumerate(MASKED_CHECKS):
+        dtype = getattr(torch, dtype)
+        g = torch.Generator(device=dev).manual_seed(50 + i)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        q, k, v, do = (rnd(b, sq, h, d), rnd(b, sk, hkv, d),
+                       rnd(b, sk, hkv, d), rnd(b, sq, h, d))
+        mask, fm = masked_case(kind, b, sq, sk, h, 50 + i, dev)
+        kw = dict(causal=causal, mask=mask, fm=fm)
+        out, lse = FK.fa_forward_masked_cuda(q, k, v, return_lse=True, **kw)
+        w_out, w_lse = FK.fa_forward_plain(q, k, v, return_lse=True, **kw)
+        grads = FK.fa_backward_cuda(q, k, v, w_out, w_lse, do, **kw)
+        w_grads = FK.fa_backward_plain(q, k, v, w_out, w_lse, do, **kw)
+        torch.cuda.synchronize()
+        got = dict(zip(FA_NAMES, (out, lse) + grads))
+        want = dict(zip(FA_NAMES, (w_out, w_lse) + w_grads))
+        readings[name], cmp, sigma = masked_check(name, q, k, v, do, kw,
+                                                  got, want)
+        print(f"kernel check ok: masked {name}: B,Sq,Sk,H,HKV,D="
+              f"{(b, sq, sk, h, hkv, d)} causal={causal} {str(dtype)[6:]}, "
+              f"{readings[name]['dead_rows']} dead rows exact: " + " ".join(
+                  f"{n} err {e:.3e} ratio {r:.3f}"
+                  for n, (r, e) in cmp.items()), flush=True)
+        if kind in ("window", "band") and dtype == torch.bfloat16 \
+                and d == 128:
+            for fault, tensors in masked_faults(q, k, v, do, causal, fm,
+                                                want):
+                r = {n: fa_compare({n: t}, {n: want[n]}, sigma)[n][0]
+                     for n, t in tensors.items()}
+                readings[name]["planted: " + fault] = r
+                if not max(r.values()) > 1.0:
+                    raise AssertionError(f"the check passes a planted "
+                                         f"fault: {fault}: ratios {r}")
+                print(f"planted fault rejected: {fault}: " + " ".join(
+                    f"{n} ratio {x:.2f}" for n, x in r.items()), flush=True)
+        del q, k, v, do, out, lse, w_out, w_lse, grads, w_grads, got, want
+        del mask, fm, sigma
+        torch.cuda.empty_cache()
+
+    # the Mistral training shape (lse on, as training calls K6): the
+    # kernels over the whole batch, the plain versions one batch row a
+    # call (their [1, 32, 8192, 8192] float32 score tensors are 8.6 GB
+    # each; two rows do not fit beside them), compared row by row
+    b, s, h, hkv, d = MASKED_TRAIN_SHAPE
+    bf16 = torch.bfloat16
+    q, k, v, do, _ = fa_inputs(*MASKED_TRAIN_SHAPE, bf16, seed=101, dev=dev)
+    worst = {"stream": 0.0, "dq": 0.0, "dkv": 0.0}
+
+    def row(x, i):
+        return x[i:i + 1] if x.shape[0] > 1 else x
+    for name, fm in masked_train_cases(dev):
+        kw = dict(causal=True, mask=None, fm=fm)
+        out, lse = FK.fa_forward_masked_cuda(q, k, v, return_lse=True, **kw)
+        w_fwd = [FK.fa_forward_plain(
+            row(q, i), row(k, i), row(v, i), return_lse=True, causal=True,
+            fm=tuple(row(x, i) for x in fm)) for i in range(b)]
+        w_out = torch.cat([o for o, _ in w_fwd])
+        w_lse = torch.cat([x for _, x in w_fwd])
+        del w_fwd
+        grads = FK.fa_backward_cuda(q, k, v, w_out, w_lse, do, **kw)
+        got_all = dict(zip(FA_NAMES, (out, lse) + grads))
+        for i in range(b):
+            xs = tuple(row(x, i) for x in (q, k, v, do))
+            kw_i = dict(kw, fm=tuple(row(x, i) for x in fm))
+            w_grads = FK.fa_backward_plain(*xs[:3], row(w_out, i),
+                                           row(w_lse, i), xs[3], **kw_i)
+            got = {n: row(t, i) for n, t in got_all.items()}
+            want = dict(zip(FA_NAMES, (row(w_out, i), row(w_lse, i))
+                            + w_grads))
+            label = f"{name}, B,S,H,HKV,D={MASKED_TRAIN_SHAPE} row {i}"
+            readings[label], cmp, _ = masked_check(label, *xs, kw_i, got,
+                                                   want)
+            worst["stream"] = max(worst["stream"], cmp["out"][1],
+                                  cmp["lse"][1])
+            worst["dq"] = max(worst["dq"], cmp["dq"][1])
+            worst["dkv"] = max(worst["dkv"], cmp["dk"][1], cmp["dv"][1])
+            print(f"kernel check ok: masked {label} bf16, "
+                  f"{readings[label]['dead_rows']} dead rows exact: "
+                  + " ".join(f"{n} err {e:.3e} ratio {r:.3f}"
+                             for n, (r, e) in cmp.items()), flush=True)
+            del w_grads, got, want
+            torch.cuda.empty_cache()
+        del out, lse, grads, got_all, w_out, w_lse
+
+    # times at the same shape, the window's bands
+    fm = masked_train_cases(dev)[0][1]
+    out, lse = FK.fa_forward_masked_cuda(q, k, v, causal=True,
+                                         return_lse=True, fm=fm)
+    delta = FK._delta(out, do, None)
+    t = {"stream": cuda_ms(lambda: FK.fa_forward_masked_cuda(
+             q, k, v, causal=True, return_lse=True, fm=fm), iters=5),
+         "dq": cuda_ms(lambda: FK.fa_dq_cuda(q, k, v, do, lse, delta,
+                                             causal=True, fm=fm), iters=3),
+         "dkv": cuda_ms(lambda: FK.fa_dkv_cuda(q, k, v, do, lse, delta,
+                                               causal=True, fm=fm), iters=3)}
+    # the plain version one batch row a call, the rows in one timed run
+    rows_ = [tuple(x[i:i + 1] for x in (q, k, v, do, out)) + (lse[i:i + 1],)
+             for i in range(b)]
+    plain_fwd = cuda_ms(lambda: [FK.fa_forward_plain(
+        q1, k1, v1, causal=True, return_lse=True, fm=fm)
+        for q1, k1, v1, *_ in rows_], iters=1, warmup=1)
+    plain_bwd = cuda_ms(lambda: [FK.fa_backward_plain(
+        q1, k1, v1, o1, l1, do1, causal=True, fm=fm)
+        for q1, k1, v1, do1, o1, l1 in rows_], iters=1, warmup=1)
+    del rows_
+    torch.cuda.empty_cache()
+    lib = library_band_ms(q, k, v, do, MISTRAL_WINDOW)
+    pairs = b * h * window_pairs(s, MISTRAL_WINDOW)
+    work = masked_work(b, s, s, h, hkv, d, pairs, q.element_size())
+    rows = {}
+    for key, plain_ms, lib_ms in (("stream", plain_fwd, lib["fwd"]),
+                                  ("dq", plain_bwd, lib["bwd"]),
+                                  ("dkv", plain_bwd, lib["bwd"])):
+        nbytes, flops = work[key]
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows[key] = dict(ms=t[key], plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         flops=flops, pairs=pairs, max_abs_err=worst[key])
+        print(f"kernel time masked {key}: B,S,H,HKV,D={MASKED_TRAIN_SHAPE} "
+              f"causal window {MISTRAL_WINDOW} bf16: kernel {t[key]:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} flop, "
+              f"{pairs} live pairs)", flush=True)
+    print("kernel time masked: max_abs_err is the largest at the training "
+          "shape; the plain version runs one batch row a call; the plain "
+          "and sdpa backward times compute dq, dk and dv together; "
+          + lib["note"], flush=True)
+    rows["checks"] = readings
+    return rows
+
+
+def library_band_ms(q, k, v, do, window):
+    """SDPA's memory-efficient backend with the boolean band mask on the
+    same tensors seen as [B,H,S,D] (K/V repeated to the query heads):
+    forward and backward ms, the yardstick the port never calls. None
+    where the backend refuses the shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    s = q.shape[1]
+    g = q.shape[2] // k.shape[2]
+    pos = torch.arange(s, device=q.device)
+    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep), iters=3)
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+            dot = do.transpose(1, 2)
+            bwd = cuda_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), iters=2)
+        return {"fwd": fwd, "bwd": bwd,
+                "note": "sdpa = the memory-efficient backend with the "
+                        "[S, S] bool band mask, K/V repeated to 32 heads"}
+    except RuntimeError as e:   # the yardstick only: the port never calls it
+        return {"fwd": None, "bwd": None,
+                "note": f"sdpa's memory-efficient backend refused: {e}"}
 
 
 # -- multi-tensor AdamW (K4) -------------------------------------------------
@@ -805,6 +1211,27 @@ def _counts():
                                   for k, v in adamw_kernel.stats.items()}}
 
 
+def attention_counts(cfg, n):
+    """The flash-attention launches ``n`` forward+backward passes of every
+    layer must show: K6 with a sliding window (FlashMask), else K1; K2
+    and K3 either way."""
+    fwd = n * cfg.num_hidden_layers
+    k6 = bool(cfg.sliding_window)
+    return {"fwd_launches": 0 if k6 else fwd,
+            "stream_fwd_launches": fwd if k6 else 0,
+            "dq_launches": fwd, "dkv_launches": fwd}
+
+
+def check_counts(counts, want, what):
+    """Exact launch counts and no plain-version call at all."""
+    zero = [k for k in counts if "plain" in k]
+    bad = {k: counts[k] for k in want if counts[k] != want[k]}
+    bad.update({k: counts[k] for k in zero if counts[k]})
+    if bad:
+        raise AssertionError(f"{what} counts {counts}: want {want} and 0 "
+                             f"for {zero}")
+
+
 def _reset_counts():
     from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
     fa_kernel.reset_stats()
@@ -812,7 +1239,7 @@ def _reset_counts():
 
 
 def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
-                seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+                seq=TRAIN_SEQ, steps=TRAIN_STEPS, label="llama2_7b"):
     """The training step at full width and reduced depth: a counted run
     of ``steps`` steps, then a timed one, then synchronised single steps
     for the step time's median."""
@@ -823,9 +1250,11 @@ def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
     t0 = time.perf_counter()
     m, xs = train_setup(cfg, dev, batch, seq, steps)
     on_card = m.device.type == "cuda"
-    print(f"train model: llama2_7b width h={cfg.hidden_size} L={layers} "
-          f"heads={cfg.num_attention_heads} ffn={cfg.intermediate_size} "
-          f"vocab={cfg.vocab_size}, {count_params(cfg) / 1e9:.3f}B params "
+    kv = cfg.num_key_value_heads or cfg.num_attention_heads
+    print(f"train model: {label} width h={cfg.hidden_size} L={layers} "
+          f"heads={cfg.num_attention_heads}/{kv} "
+          f"ffn={cfg.intermediate_size} vocab={cfg.vocab_size}, window "
+          f"{cfg.sliding_window}, {count_params(cfg) / 1e9:.3f}B params "
           f"bf16 + f32 masters, batch {batch} x {seq}, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     head = head_check(m, xs[0])
@@ -837,14 +1266,8 @@ def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
     first_wall = time.perf_counter() - t0
     counts = _counts()
 
-    want = {"fwd_launches": layers * steps, "dq_launches": layers * steps,
-            "dkv_launches": layers * steps, "adamw_kernel_launches": steps}
-    zero = [k for k in counts if "plain" in k]
-    bad = {k: counts[k] for k in want if counts[k] != want[k]}
-    bad.update({k: counts[k] for k in zero if counts[k]})
-    if bad:
-        raise AssertionError(f"training counts {counts}: want {want} and 0 "
-                             f"for {zero}")
+    want = {**attention_counts(cfg, steps), "adamw_kernel_launches": steps}
+    check_counts(counts, want, "training")
     ls = losses.tolist()
     expect = expected_first_loss(cfg)
     if not all(math.isfinite(x) for x in ls):
@@ -854,12 +1277,12 @@ def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
                              f"{FIRST_LOSS_TOL} of {expect:.4f}")
     if not ls[-1] < ls[0]:
         raise AssertionError(f"loss did not fall: {ls}")
-    print(f"train ok: {steps} steps, losses {[round(x, 4) for x in ls]} "
-          f"(first within {FIRST_LOSS_TOL} of ln V + s2/2 = {expect:.4f}); "
-          f"launches K1 {counts['fwd_launches']} K2 "
-          f"{counts['dq_launches']} K3 {counts['dkv_launches']} = {layers} "
-          f"x {steps}, K4 {counts['adamw_kernel_launches']}, plain calls 0",
-          flush=True)
+    print(f"train ok: {label}, {steps} steps, losses "
+          f"{[round(x, 4) for x in ls]} (first within {FIRST_LOSS_TOL} of "
+          f"ln V + s2/2 = {expect:.4f}); launches K1 {counts['fwd_launches']}"
+          f" K6 {counts['stream_fwd_launches']} K2 {counts['dq_launches']} "
+          f"K3 {counts['dkv_launches']} ({layers} layers x {steps} steps), "
+          f"K4 {counts['adamw_kernel_launches']}, plain calls 0", flush=True)
 
     t0 = time.perf_counter()
     m.train_batch_loop([xs], [xs])
@@ -879,7 +1302,8 @@ def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
                    loop_s=loop_s, tokens_per_s=tok_s, step_p50_s=step_s[2],
                    step_min_s=step_s[0], step_max_s=step_s[-1], mfu=mfu,
                    peak_mem_gib=peak, launches=counts, head=head)
-    print(f"training [{smi}]: {tok_s:.1f} tokens/s over a {steps}-step "
+    print(f"training {label} [{smi}]: {tok_s:.1f} tokens/s over a "
+          f"{steps}-step "
           f"train_batch_loop ({loop_s:.3f} s), step p50 {step_s[2]:.4f} s "
           f"(min {step_s[0]:.4f}, max {step_s[-1]:.4f}; 5 synchronised "
           f"train_batch), MFU {100 * mfu:.2f} % of 989 TFLOP/s, peak "
@@ -888,7 +1312,7 @@ def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
     if profile_steps:
         summary["profile"] = trace_steps(
             lambda: m.train_batch([xs[0]], [xs[0]]), profile_steps,
-            f"train step (batch {batch} x {seq}, L={layers})", smi)
+            f"{label} train step (batch {batch} x {seq}, L={layers})", smi)
     return summary
 
 
@@ -914,30 +1338,175 @@ def path_compare_phase(cfg, dev=None, steps=3, batch=TRAIN_BATCH,
         return losses, counts
 
     kernel_losses, kc = run()
-    saved = FK.fa_forward_cuda, FK.fa_backward_cuda, AK.adamw_update_cuda
-    FK.fa_forward_cuda, FK.fa_backward_cuda = (FK.fa_forward_plain,
-                                               FK.fa_backward_plain)
+    names = ("fa_forward_cuda", "fa_forward_masked_cuda", "fa_backward_cuda")
+    saved = [getattr(FK, n) for n in names] + [AK.adamw_update_cuda]
+    FK.fa_forward_cuda = FK.fa_forward_masked_cuda = FK.fa_forward_plain
+    FK.fa_backward_cuda = FK.fa_backward_plain
     AK.adamw_update_cuda = AK.adamw_update_plain
     try:
         plain_losses, pc = run()
     finally:
-        FK.fa_forward_cuda, FK.fa_backward_cuda, AK.adamw_update_cuda = saved
+        for n, fn in zip(names, saved):
+            setattr(FK, n, fn)
+        AK.adamw_update_cuda = saved[-1]
     layers = cfg.num_hidden_layers
     n = layers * steps
-    if (kc["fwd_launches"] != n or kc["plain_fwd_calls"]
-            or pc["fwd_launches"] or pc["plain_fwd_calls"] != n
-            or pc["adamw_kernel_launches"]
+    check_counts(kc, {**attention_counts(cfg, steps),
+                      "adamw_kernel_launches": steps}, "kernel path")
+    launched = [k for k in pc if k.endswith("launches") and pc[k]]
+    if (launched or pc["plain_fwd_calls"] != n or pc["plain_bwd_calls"] != n
             or pc["adamw_plain_calls"] != steps):
-        raise AssertionError(f"path counts: kernels {kc}, plain {pc}")
+        raise AssertionError(f"plain path counts {pc}")
     diff = max(abs(a - b) for a, b in zip(kernel_losses, plain_losses))
-    print(f"path check: L={layers} full width, {steps} steps: kernels "
+    print(f"path check: window {cfg.sliding_window}, batch {batch} x {seq}, "
+          f"L={layers} full width, {steps} steps: kernels "
           f"{[round(x, 5) for x in kernel_losses]}, plain "
           f"{[round(x, 5) for x in plain_losses]}, max diff {diff:.3e} "
           f"(tol {PATH_LOSS_TOL})", flush=True)
     if not diff <= PATH_LOSS_TOL:
         raise AssertionError(f"kernel path and plain path differ by {diff}")
-    return dict(layers=layers, steps=steps, kernel_losses=kernel_losses,
+    return dict(layers=layers, steps=steps, batch=batch, seq=seq,
+                window=cfg.sliding_window, kernel_losses=kernel_losses,
                 plain_losses=plain_losses, max_diff=diff)
+
+
+# -- packed documents (FlashMask's startend_row_indices) ---------------------
+
+PACKED_STEPS = 3
+DOC_NLL_TOL = 2e-2   # summed token NLL, packed row vs each document alone
+
+
+def doc_lengths(rng, seq, lo=128, hi=4096):
+    """Document lengths in [lo, hi] from ``rng`` that fill ``seq``."""
+    out, left = [], seq
+    while left > hi + lo:
+        n = int(rng.integers(lo, hi + 1))
+        out.append(n)
+        left -= n
+    if left > hi:                    # two documents, each in [lo, hi]
+        n = int(rng.integers(lo, left - lo + 1))
+        out.append(n)
+        left -= n
+    return out + [left]
+
+
+def packed_inputs(rows, vocab, seed, dev):
+    """ids, position ids restarting at each document and the C=1
+    ``startend_row_indices [B, 1, S, 1]`` int32 (key j's document end),
+    for rows of document lengths."""
+    import numpy as np
+    import torch
+    seq = sum(rows[0])
+    ids = np.random.default_rng(seed).integers(0, vocab, (len(rows), seq))
+    pos = np.zeros((len(rows), seq), np.int64)
+    for b, lengths in enumerate(rows):
+        lo = 0
+        for n in lengths:
+            pos[b, lo:lo + n] = np.arange(n)
+            lo += n
+    idx = doc_ends(rows, seq, "cpu")[..., None]
+    return (torch.as_tensor(ids, device=dev), torch.as_tensor(pos, device=dev),
+            idx.to(dev))
+
+
+def packed_phase(cfg, smi, dev=None, batch=MISTRAL_BATCH, seq=MISTRAL_SEQ,
+                 steps=PACKED_STEPS):
+    """The Mistral step on packed documents, by hand: forward with
+    ``attn_mask_startend_row_indices``, the criterion, ``backward()``,
+    the optimizer's step, ``clear_grad()`` (``Model._step``'s calls:
+    ``Model`` feeds its inputs positionally, so it cannot reach the
+    keyword). K6, K2 and K3 must launch once per layer and step."""
+    import numpy as np
+
+    m, _ = train_setup(cfg, dev, batch, seq, 1)
+    net, crit, opt = m.network, m._loss, m._optimizer
+    rng = np.random.default_rng(3)
+    rows = [doc_lengths(rng, seq) for _ in range(batch)]
+    ids, pos, idx = packed_inputs(rows, cfg.vocab_size, 3, m.device)
+    net.train()
+    _reset_counts()
+    losses = []
+    for _ in range(steps):
+        loss = crit(net(ids, position_ids=pos,
+                        attn_mask_startend_row_indices=idx), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    ls = [float(x) for x in losses]
+    counts = _counts()
+    check_counts(counts, {**attention_counts(cfg, steps),
+                          "adamw_kernel_launches": steps}, "packed")
+    if not (all(math.isfinite(x) for x in ls) and ls[-1] < ls[0]):
+        raise AssertionError(f"packed losses not finite and falling: {ls}")
+    print(f"packed ok: {batch} rows x {seq} tokens of {sum(map(len, rows))} "
+          f"documents (lengths {rows}), {steps} steps by hand, losses "
+          f"{[round(x, 4) for x in ls]}; launches K6 "
+          f"{counts['stream_fwd_launches']} K2 {counts['dq_launches']} K3 "
+          f"{counts['dkv_launches']} ({cfg.num_hidden_layers} layers x "
+          f"{steps} steps), K1 {counts['fwd_launches']}, plain calls 0",
+          flush=True)
+    return dict(rows=rows, losses=ls, launches=counts)
+
+
+def token_nll(logits, ids):
+    """-log p(ids[t + 1]) of each position t, float32 ``[S - 1]``."""
+    import torch
+    lsm = torch.log_softmax(logits[0, :-1].float(), dim=-1)
+    return -lsm.gather(-1, ids[0, 1:, None])[:, 0]
+
+
+def document_phase(cfg, dev=None, lengths=(1500, 2292, 4400)):
+    """One packed row of three documents (the last longer than the
+    window) through the kernels, in float32: each document's summed token
+    NLL (its tokens predicting the next within it) against the same
+    document run alone, within DOC_NLL_TOL. The same row with no document
+    bounds, where tokens see the documents before theirs, is the planted
+    fault: every document after the first must fail the same test."""
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model.eval()
+    ids, pos, idx = packed_inputs([list(lengths)], cfg.vocab_size, 4,
+                                  model.device)
+    _reset_counts()
+    with torch.no_grad():
+        packed = token_nll(model(ids, position_ids=pos,
+                                 attn_mask_startend_row_indices=idx), ids)
+        leaky = token_nll(model(ids, position_ids=pos), ids)
+        docs, lo = [], 0
+        for n in lengths:
+            alone = token_nll(model(ids[:, lo:lo + n]),
+                              ids[:, lo:lo + n]).double()
+            got = packed[lo:lo + n - 1].double()
+            bad = leaky[lo:lo + n - 1].double()
+            docs.append(dict(
+                tokens=n - 1, alone=alone.sum().item(),
+                diff=(got - alone).sum().abs().item(),
+                max_token_diff=(got - alone).abs().max().item(),
+                leaky_diff=(bad - alone).sum().abs().item(),
+                leaky_max_token_diff=(bad - alone).abs().max().item()))
+            lo += n
+    counts = _counts()
+    check_counts(counts, {"stream_fwd_launches": cfg.num_hidden_layers
+                          * (2 + len(lengths)), "fwd_launches": 0},
+                 "document check")
+    print("document check: " + "; ".join(
+        f"{d['tokens'] + 1} tokens: summed NLL alone {d['alone']:.4f}, "
+        f"packed off by {d['diff']:.3e} (max token {d['max_token_diff']:.2e})"
+        f", unbounded row off by {d['leaky_diff']:.3e} (max token "
+        f"{d['leaky_max_token_diff']:.2e})" for d in docs)
+        + f" (tol {DOC_NLL_TOL} summed)", flush=True)
+    bad = [d for d in docs if not d["diff"] <= DOC_NLL_TOL]
+    if bad:
+        raise AssertionError(f"a packed document departs from itself run "
+                             f"alone: {bad}")
+    passed = [d for d in docs[1:] if not d["leaky_diff"] > DOC_NLL_TOL]
+    if passed:
+        raise AssertionError(f"the check passes the row with no document "
+                             f"bounds: {passed}")
+    return docs
 
 
 # -- the serving engine ------------------------------------------------------
@@ -1196,6 +1765,9 @@ def main(argv=None):
     train_cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS,
                                       dtype="bfloat16",
                                       fuse_linear_cross_entropy=True)
+    mistral_cfg = LlamaConfig.mistral_7b(num_hidden_layers=TRAIN_LAYERS,
+                                         dtype="bfloat16",
+                                         fuse_linear_cross_entropy=True)
     res = {"card": smi, "torch": torch.__version__,
            "cuda": torch.version.cuda, "build_s": build_s, "phase_s": {}}
 
@@ -1212,6 +1784,9 @@ def main(argv=None):
         res["k5"] = phase("kernels K5", kernel_phase)
         res["fa"] = phase("kernels K1-K3", fa_phase)
         res["adamw"] = phase("kernel K4", adamw_phase, train_cfg)
+    if "masked" in phases:
+        res["masked"] = phase("kernels K6 and the masked K2/K3",
+                              masked_fa_phase)
     if "train" in phases:
         res["train"] = phase("train", train_phase, train_cfg, smi,
                              profile_steps=args.profile)
@@ -1219,6 +1794,27 @@ def main(argv=None):
                             LlamaConfig.llama2_7b(
                                 num_hidden_layers=2, dtype="bfloat16",
                                 fuse_linear_cross_entropy=True))
+    if "mistral" in phases:
+        res["mistral"] = phase("mistral", train_phase, mistral_cfg, smi,
+                               profile_steps=args.profile,
+                               batch=MISTRAL_BATCH, seq=MISTRAL_SEQ,
+                               label="mistral_7b")
+    if "packed" in phases:
+        res["packed"] = phase("packed", packed_phase, mistral_cfg, smi)
+        # float32, so that the sums hold to DOC_NLL_TOL: bf16 rounding
+        # alone moves a document's summed NLL by ~0.3
+        res["documents"] = phase(
+            "packed documents vs alone", document_phase,
+            LlamaConfig.mistral_7b(num_hidden_layers=2, dtype="float32"))
+    if "mistral_path" in phases:
+        # the window cut to 1024 at S 4096: the length at which the plain
+        # attention of the comparison fits
+        res["mistral_path"] = phase(
+            "mistral kernel path vs plain path", path_compare_phase,
+            LlamaConfig.mistral_7b(num_hidden_layers=2, dtype="bfloat16",
+                                   fuse_linear_cross_entropy=True,
+                                   sliding_window=MASKED_WINDOW),
+            batch=1, seq=MASKED_S)
     if "serve" in phases:
         # the dense reference forward of the engine check is plain float32
         # attention, so K5 is held against a plain reference, not K1
@@ -1242,12 +1838,14 @@ def main(argv=None):
     return 0
 
 
-PHASES = ("kernels", "train", "serve")
+PHASES = ("kernels", "masked", "train", "mistral", "packed", "mistral_path",
+          "serve")
 
 
 def kernel_rows(res):
-    """The ``kernels`` JSON rows: K5, K1, K2, K3, K4, each with its
-    launches on its path's counted run and this run's measurements."""
+    """The ``kernels`` JSON rows: K5, K1, K2, K3, K6 and the masked arms
+    of K2/K3 (launches from the Mistral run), K4, each with its launches
+    on its path's counted run and this run's measurements."""
     rows = []
     k5 = res.get("k5")
     if k5:
@@ -1275,6 +1873,19 @@ def kernel_rows(res):
                              replaces=replaces,
                              launches=launches.get(count),
                              **_row_numbers(res["fa"][key])))
+    mistral = res.get("mistral", {}).get("launches", {})
+    for key, name, replaces, count in (
+            ("stream", "flash_attention_fwd_stream",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:257", "stream_fwd_launches"),
+            ("dq", "flash_attention_bwd_dq_masked",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:811", "dq_launches"),
+            ("dkv", "flash_attention_bwd_dkv_masked",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:862", "dkv_launches")):
+        if "masked" in res:
+            rows.append(dict(name=name, route="cuda", source=fa_src,
+                             replaces=replaces,
+                             launches=mistral.get(count),
+                             **_row_numbers(res["masked"][key])))
     if "adamw" in res:
         rows.append(dict(name="adamw_multi_tensor", route="cuda",
                          source="paddle_tpu_torch/ops/csrc/adamw.cu",

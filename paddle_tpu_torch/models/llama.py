@@ -5,20 +5,23 @@ Module names mirror the JAX package (``llama.layers.0.self_attn.q_proj``
 
 - Training: :class:`LlamaForCausalLM` with ``use_flash_attention`` runs
   its attention through ``scaled_dot_product_attention`` (the kernels
-  K1-K3 on the card); with ``fuse_linear_cross_entropy`` a training
+  K1-K3 on the card, K6 with an ``attn_mask``); a ``sliding_window``
+  (Mistral) and PaddleNLP's packed-document
+  ``attn_mask_startend_row_indices`` go through ``flashmask_attention``
+  (K6 and the banded arms of K2/K3). With ``fuse_linear_cross_entropy`` a
+  training
   forward returns the marked final hidden state and
   :class:`LlamaPretrainingCriterion` applies the head chunk by chunk with
   the cross entropy (the ``[B, S, V]`` logits never exist at once).
 - ``use_flash_attention=False`` takes plain float32 attention (the JAX
-  package's ``_ref_attn_fn`` path): the dense reference the serving
-  engine's paged path is held against.
+  package's ``_ref_attn_fn`` path, banded with ``sliding_window``): the
+  dense reference the serving engine's paged path is held against.
 - Serving runs the trunk through ``serving/engine.py::_paged_forward``,
   which reuses these modules' weights.
 
 Configuration flags outside the ported slices (tensor, sequence and
-context parallelism, MoE, recompute; a sliding window on the flash path
-on the card, which needs the FlashMask arm of K6) raise
-``NotImplementedError``; none is silently ignored.
+context parallelism, MoE, recompute) raise ``NotImplementedError``; none
+is silently ignored.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, resolve_dtype
 from ..nn import RMSNorm
-from ..nn.functional import (fused_rotary_position_embedding,
+from ..nn.functional import (flashmask_attention,
+                             fused_rotary_position_embedding,
                              scaled_dot_product_attention, swiglu)
 from ..ops.flash_attention import _attention_ref
 
@@ -124,10 +128,17 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(h, kv_out, **kw)
         self.o_proj = nn.Linear(h, h, **kw)
 
-    def forward(self, x, position_ids):
-        """Causal GQA attention over the whole sequence: the flash kernels
-        when ``cfg.use_flash_attention``, else plain float32 attention
-        (banded with ``sliding_window``)."""
+    def forward(self, x, position_ids, attn_mask=None,
+                startend_row_indices=None):
+        """Causal GQA attention over the whole sequence, the JAX package's
+        branches without a KV cache: FlashMask bounds
+        (``startend_row_indices``, the window folded in) or a sliding
+        window with flash attention through ``flashmask_attention``; a
+        window without it as plain banded attention; otherwise the flash
+        kernels (with ``attn_mask``) or, with ``use_flash_attention=False``,
+        plain float32 attention. Mistral's ``sliding_window`` w counts the
+        query itself among its w visible keys, ``window_size`` counts the
+        keys before it: hence w - 1."""
         b, s, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(x).reshape(b, s, nh, hd)
@@ -137,21 +148,32 @@ class LlamaAttention(nn.Module):
             q, k, position_ids=position_ids,
             rotary_emb_base=self.cfg.rope_theta)
         sw = self.cfg.sliding_window
-        if self.cfg.use_flash_attention and not sw:
-            out = scaled_dot_product_attention(q, k, v, is_causal=True,
+        if sw and attn_mask is not None:
+            raise NotImplementedError(
+                "sliding_window does not compose with a dense attn_mask; "
+                "use packed sequences via attn_mask_startend_row_indices "
+                "(FlashMask folds the window into the column bounds)")
+        if startend_row_indices is not None:
+            if attn_mask is not None:
+                raise ValueError("attn_mask and attn_mask_startend_row_"
+                                 "indices are mutually exclusive")
+            out = flashmask_attention(
+                q, k, v, startend_row_indices=startend_row_indices,
+                causal=True, window_size=int(sw) - 1 if sw else None)
+        elif sw and self.cfg.use_flash_attention:
+            out = flashmask_attention(q, k, v, causal=True,
+                                      window_size=int(sw) - 1)
+        elif self.cfg.use_flash_attention:
+            out = scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                               is_causal=True,
                                                training=self.training)
         else:
-            if sw and self.cfg.use_flash_attention and x.device.type != "cpu":
-                raise NotImplementedError(
-                    "sliding_window attention on the card runs on the "
-                    "FlashMask arm of the streamed forward K6, not ported "
-                    "yet; use_flash_attention=False takes plain attention")
-            band = None
+            mask = attn_mask.detach() if attn_mask is not None else None
             if sw:
                 pos = torch.arange(s, device=x.device)
-                band = pos[None, :] > pos[:, None] - int(sw)
+                mask = pos[None, :] > pos[:, None] - int(sw)
             out = _attention_ref(q.float(), k.float(), v.float(),
-                                 mask=band, causal=True).to(x.dtype)
+                                 mask=mask, causal=True).to(x.dtype)
         return self.o_proj(out.reshape(b, s, nh * hd))
 
 
@@ -179,8 +201,10 @@ class LlamaDecoderLayer(nn.Module):
                                                 cfg.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(cfg, **kw)
 
-    def forward(self, x, position_ids):
-        h = x + self.self_attn(self.input_layernorm(x), position_ids)
+    def forward(self, x, position_ids, attn_mask=None,
+                startend_row_indices=None):
+        h = x + self.self_attn(self.input_layernorm(x), position_ids,
+                               attn_mask, startend_row_indices)
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -197,14 +221,16 @@ class LlamaModel(nn.Module):
              for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, attn_mask=None,
+                attn_mask_startend_row_indices=None):
         if position_ids is None:
             position_ids = torch.arange(
                 input_ids.shape[1], device=input_ids.device
             )[None].expand(input_ids.shape[0], -1)
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer(x, position_ids)
+            x = layer(x, position_ids, attn_mask,
+                      attn_mask_startend_row_indices)
         return self.norm(x)
 
 
@@ -240,8 +266,10 @@ class LlamaForCausalLM(nn.Module):
     def device(self):
         return self.lm_head.weight.device
 
-    def forward(self, input_ids, position_ids=None):
-        h = self.llama(input_ids, position_ids)
+    def forward(self, input_ids, position_ids=None, attn_mask=None,
+                attn_mask_startend_row_indices=None):
+        h = self.llama(input_ids, position_ids, attn_mask,
+                       attn_mask_startend_row_indices)
         if self.cfg.fuse_linear_cross_entropy and self.training:
             # the criterion applies the head chunk by chunk with the CE;
             # the marker, not a shape test, tells it this is hidden

@@ -1,7 +1,7 @@
 """The LLaMA trunk's elementwise functions, in PyTorch.
 
 Counterparts: ``paddle_tpu/nn/functional/__init__.py::rms_norm`` /
-``scaled_dot_product_attention`` and
+``scaled_dot_product_attention`` / ``flashmask_attention`` and
 ``paddle_tpu/incubate/nn/functional/__init__.py::swiglu`` /
 ``fused_rotary_position_embedding``. Each keeps the JAX package's
 precision order so the two agree in float32 and round alike in bf16.
@@ -11,10 +11,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import flash_attention_bshd
+from ..ops.flash_attention import flash_attention_bshd, flashmask_attention
 
 __all__ = ["rms_norm", "swiglu", "fused_rotary_position_embedding",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "flashmask_attention"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -62,8 +62,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, name=None):
     """``[B, S, H, D]`` attention (key/value may carry fewer heads), the
     JAX package's layout: :func:`~..ops.flash_attention.
-    flash_attention_bshd`, the kernels K1-K3 on the card. A mask or
-    dropout in training raises ``NotImplementedError`` (not ported)."""
+    flash_attention_bshd`, the kernels K1-K3 on the card, K6 and the
+    masked arms of K2/K3 with ``attn_mask`` (bool, True = keep, or
+    additive; taken without a gradient, as the JAX package detaches it).
+    Dropout in training raises ``NotImplementedError`` (not ported)."""
+    if attn_mask is not None:
+        attn_mask = attn_mask.detach()
     return flash_attention_bshd(query, key, value, mask=attn_mask,
                                 causal=is_causal,
                                 dropout_p=dropout_p if training else 0.0)

@@ -2,42 +2,60 @@
 // plain C interface that paddle_tpu_torch/ops/fa_kernel.py loads through
 // ctypes.
 //
-// Replaces three TPU kernels of paddle_tpu/ops/pallas/_fa_kernel.py, the
-// arms the LLaMA training step runs (no mask, no segment ids, no dropout,
-// Sq == Sk):
-//   K1 _fa_fwd_kernel     (pallas_call at _fa_kernel.py:540): online-softmax
-//      forward, causal k-loop bound, GQA (query head h reads kv head
-//      h / G), optional log-sum-exp output;
-//   K2 _fa_bwd_dq_kernel  (pallas_call at _fa_kernel.py:811): p = exp(s -
+// Replaces four TPU kernels of paddle_tpu/ops/pallas/_fa_kernel.py (all
+// but their segment-id and dropout arms):
+//   K1 _fa_fwd_kernel        (pallas_call at _fa_kernel.py:540): the
+//      resident-K/V online-softmax forward, Sq == Sk, no mask: causal
+//      k-loop bound, GQA (query head h reads kv head h / G), optional
+//      log-sum-exp output;
+//   K6 _fa_fwd_stream_kernel (pallas_call at _fa_kernel.py:540): the
+//      streamed forward the JAX package routes masked and cross-length
+//      calls to (_fa_kernel.py:446): as K1, and Sq may differ from Sk (the
+//      causal diagonal at offset = Sk - Sq), an additive float32 mask
+//      [B|1, H|1, Sq, Sk], one or two FlashMask row bands per key column
+//      [B|1, H|1, Sk] int32, and k tiles dead for the whole q tile skipped;
+//   K2 _fa_bwd_dq_kernel     (pallas_call at _fa_kernel.py:811): p = exp(s -
 //      lse), ds = p * (dp - delta), dq += ds K scale;
-//   K3 _fa_bwd_dkv_kernel (pallas_call at _fa_kernel.py:862): dv += p^T dO,
+//   K3 _fa_bwd_dkv_kernel    (pallas_call at _fa_kernel.py:862): dv += p^T dO,
 //      dk += ds^T Q scale, summed over the G query heads of a kv head.
-// Same semantics. Where the scale is applied: the backward kernels scale
-// s after the dot (as the TPU kernels do); the CUDA-core forward scales q
-// before its dot (as the TPU forward does), the tensor-core forward, which
-// the bf16 training path runs, scales s after its dot (equal up to
-// float32 ulps: the bf16 q stays unrounded for the mma). A row's output is
-// acc / max(l, 1e-30) and its lse m + log(max(l, 1e-30)); delta =
-// rowsum(dO * O) (minus dlse) is computed by the caller.
+// K2 and K3 have two arms each: the plain one (causal with offset) and the
+// masked one (the mask and bands too, with the same dead-tile skip as K6).
+// Every kernel masks through one function, mask_score (the TPU file's
+// _masked_scores), in its order: rows past Sq and keys past Sk, causal,
+// each band [start, end) of the key's column, then the additive mask. A
+// row with no live key gives out 0 and lse -inf (acc / max(l, 1e-30),
+// m + log(max(l, 1e-30)) with m = -inf), and zero gradients: p is taken
+// only where the masked score is finite, as _fa_kernel.py:600-601 does.
 //
-// Layouts: q, o, dO [B, S, H, D], k, v [B, S, HKV, D], contiguous, read
+// Where the scale is applied: the backward kernels scale s after the dot
+// (as the TPU kernels do); the CUDA-core forward scales q before its dot
+// (as the TPU forward does), the tensor-core forward, which the bf16
+// training path runs, scales s after its dot (equal up to float32 ulps:
+// the bf16 q stays unrounded for the mma). delta = rowsum(dO * O) (minus
+// dlse) is computed by the caller.
+//
+// Layouts: q, o, dO [B, Sq, H, D], k, v [B, Sk, HKV, D], contiguous, read
 // and written in place with strides (no [B*H, S, D] transposes); lse and
-// delta [B, H, S] float32. bf16 or float32 in, outputs in the input type.
+// delta [B, H, Sq] float32; the mask read through its four element strides
+// (0 over a broadcast dim), the bands [n, MB, MH, Sk] through theirs. bf16
+// or float32 in, outputs in the input type.
 //
-// What bounds it on this card: operations. Causal attention at the
-// training step's shape (B 4, S 2048, H 32, D 128) does 4*B*H*S^2*D/2 =
-// 1.37e11 flops forward (K2 three products of that size, K3 four) over
-// about 0.3 GB of q/k/v/o: ~450 flops a byte, above the ~295 where the
-// tensor cores rather than HBM become the limit. The bound is 0.139 ms
-// (K1), 0.208 ms (K2), 0.278 ms (K3) at 989 TFLOP/s.
+// What bounds it on this card: operations. Causal attention at the LLaMA
+// step's shape (B 4, S 2048, H 32, D 128) does 4*B*H*S^2*D/2 = 1.37e11
+// flops forward (K2 three products of that size, K3 four) over about 0.3
+// GB of q/k/v/o: ~450 flops a byte, above the ~295 where the tensor cores
+// rather than HBM become the limit. Mistral's 4096-key window at S 8192
+// keeps 25.2M of the 33.6M causal (row, key) pairs of a head; K6, K2 and
+// K3 skip the tiles outside the band, so their bound counts live pairs.
 //
 // What the design does about that: every intermediate stays out of
 // device memory (scores, probabilities and the online-softmax state live
-// in shared memory and registers; only q/k/v/o/lse/delta and the
-// gradients touch HBM), tiles above the causal diagonal are skipped, and
-// K/V stay at their own head count (never repeated in memory; K3 reads a
-// kv tile once for its whole GQA group). Two forms of each kernel, chosen
-// by dtype and head_dim:
+// in shared memory and registers; only q/k/v/o/lse/delta, the mask, the
+// bands and the gradients touch HBM), tiles that causality or the first
+// band kill are skipped before their K/V (or Q/dO) are loaded, and K/V
+// stay at their own head count (never repeated in memory; K3 reads a kv
+// tile once for its whole GQA group, and takes each query head's own band
+// and mask row). Two forms of each kernel, chosen by dtype and head_dim:
 //   - bf16 at head_dim 64 or 128 (the training path): the products run
 //     on the tensor cores through mma.sync (bf16 in, float32 accumulate),
 //     four warps of 16 rows each;
@@ -45,10 +63,11 @@
 //     on the CUDA cores in float32, 256 threads each owning a 4 x 4 block
 //     of scores and a 4 x D/16 block of the accumulator.
 // Neither uses wgmma or TMA yet: a ring of TMA-fed tiles consumed by
-// wgmma is the next lever. Rows and keys past a ragged S are masked in
-// the kernel, so any S is taken.
+// wgmma is the next lever. Rows and keys past a ragged Sq or Sk are masked
+// in the kernel, so any length is taken.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -102,6 +121,149 @@ __device__ __forceinline__ long long row_off(int b, int s, int h, int S,
   return ((static_cast<long long>(b) * S + s) * heads + h) * D;
 }
 
+// -- masking -----------------------------------------------------------------
+
+struct Mask {
+  int causal;
+  int offset;        // Sk - Sq: query row r sees keys c <= r + offset
+  const float* add;  // additive [B|1, H|1, Sq, Sk] float32, or null
+  long long a_b, a_h, a_r, a_c;  // its element strides, 0 over a broadcast
+  const int* fm;     // n_fm / 2 bands of (start, end) rows [MB, MH, Sk]
+  int n_fm;          // 0, 2 or 4
+  long long f_band, f_b, f_h;    // the bands' strides, 0 over a broadcast
+};
+
+struct Params {
+  const void *q, *k, *v, *dout;
+  const float *lse_in, *delta;
+  void *out0, *out1;  // forward: out; dq: dq; dkv: dk, dv
+  float* lse_out;
+  int B, Sq, Sk, H, HKV;
+  float scale;
+  Mask mk;
+};
+
+// The one masking preamble of K1, K6, K2 and K3 (the TPU file's
+// _masked_scores): the scaled score s of query row r against key c of
+// head h of batch b, or -inf where that pair is masked. cl = c - k0 indexes
+// the bands of the key's tile staged in `bands` ([n_fm][BK], kMasked
+// only). Rows past Sq and keys past Sk are masked; then causal with the
+// diagonal at Sk - Sq; then each band [start, end) of column c; then the
+// additive mask is added.
+template <bool kMasked, int BK>
+__device__ __forceinline__ float mask_score(const Mask& mk, const int* bands,
+                                            float s, int b, int h, int r,
+                                            int c, int cl, int Sq, int Sk) {
+  if (r >= Sq || c >= Sk || (mk.causal && c > r + mk.offset))
+    return -INFINITY;
+  if (kMasked) {
+    for (int i = 0; i < mk.n_fm; i += 2)
+      if (r >= bands[i * BK + cl] && r < bands[(i + 1) * BK + cl])
+        return -INFINITY;
+    if (mk.add != nullptr)
+      s += mk.add[b * mk.a_b + h * mk.a_h + r * mk.a_r + c * mk.a_c];
+  }
+  return s;
+}
+
+// The bands of keys [k0, k0 + BK) for query head h of batch b into dst
+// [n_fm][BK] (K3 stages them once per query head). A key past Sk gets a
+// band over every row: it is masked anyway.
+template <int BK, int NT>
+__device__ __forceinline__ void stage_bands(int* dst, const Mask& mk, int b,
+                                            int h, int k0, int Sk) {
+  const int* f = mk.fm + b * mk.f_b + h * mk.f_h;
+  for (int idx = threadIdx.x; idx < mk.n_fm * BK; idx += NT) {
+    const int i = idx / BK, c = k0 + idx % BK;
+    dst[idx] = c < Sk ? f[i * mk.f_band + c] : (i % 2 == 0 ? INT_MIN : INT_MAX);
+  }
+}
+
+// A tile's two block-wide tests in a masked arm, for the q rows [q0, q1)
+// against the keys [k0, k0 + BK). Each thread starts from the neutral
+// values tile_flags gives and thread cl < BK folds in key k0 + cl through
+// key_flags; __syncthreads_and then combines them:
+//   dead: the first band of every key covers all the rows (the TPU
+//     kernel's test, _fa_kernel.py:320-328; a second band only masks
+//     more), so the tile is skipped;
+//   interior: no band of any key meets the rows, no additive mask, every
+//     row and key in range and causally visible, so the scores need no
+//     masking at all.
+struct TileFlags {
+  bool cover, clear;
+};
+
+__device__ __forceinline__ TileFlags tile_flags(const Mask& mk, int q0, int q1,
+                                                int BQ, int k0, int BK,
+                                                int Sk) {
+  return TileFlags{mk.n_fm > 0,
+                   mk.add == nullptr && q1 == q0 + BQ && k0 + BK <= Sk &&
+                       (!mk.causal || k0 + BK - 1 <= q0 + mk.offset)};
+}
+
+// Key k0 + cl's part: kb points at its first band's start, the band values
+// `stride` apart. An end of INT_MAX (the C=1 form) is compared, never added
+// to. A key past Sk is covered and not clear.
+__device__ __forceinline__ void key_flags(TileFlags& fl, const int* kb,
+                                          int stride, int n_fm, bool past,
+                                          int q0, int q1) {
+  if (past) {
+    fl.clear = false;
+    return;
+  }
+  fl.cover = n_fm > 0 && kb[0] <= q0 && kb[stride] >= q1;
+  for (int i = 0; i < n_fm; i += 2) {
+    const int st = kb[i * stride], en = kb[(i + 1) * stride];
+    fl.clear = fl.clear && (st >= q1 || en <= q0 || st >= en);
+  }
+}
+
+// The forward's and K2's per-tile staging in a masked arm: thread cl < BK
+// stages the bands of key k0 + cl into bands[i * BK + cl] and folds in its
+// flags. Published (with the flags) by the caller's __syncthreads_and.
+template <int BK>
+__device__ __forceinline__ TileFlags stage_key_bands(int* bands, const Mask& mk,
+                                                     int b, int h, int k0,
+                                                     int Sk, int q0, int q1,
+                                                     int BQ) {
+  TileFlags fl = tile_flags(mk, q0, q1, BQ, k0, BK, Sk);
+  const int cl = threadIdx.x;
+  if (cl < BK && mk.n_fm > 0) {
+    const int c = k0 + cl;
+    const int* f = mk.fm + b * mk.f_b + h * mk.f_h + c;
+    for (int i = 0; i < mk.n_fm; ++i)
+      bands[i * BK + cl] =
+          c < Sk ? f[i * mk.f_band] : (i % 2 == 0 ? INT_MIN : INT_MAX);
+    key_flags(fl, bands + cl, BK, mk.n_fm, c >= Sk, q0, q1);
+  }
+  return fl;
+}
+
+// The barrier after a tile's operands are staged; in a masked arm it also
+// says whether the tile is interior (the block-wide AND of `clear`).
+template <bool kMasked>
+__device__ __forceinline__ bool sync_interior(bool clear) {
+  if (kMasked) return __syncthreads_and(clear);
+  __syncthreads();
+  return false;
+}
+
+// The k tiles the q rows [q0, q1) scan: all, or under causal up to the one
+// that holds key q1 - 1 + offset (none when that key is < 0).
+__device__ __forceinline__ int k_tiles(const Mask& mk, int q1, int BK,
+                                       int Sk) {
+  const int n_all = (Sk + BK - 1) / BK;
+  if (!mk.causal) return n_all;
+  const int last = q1 - 1 + mk.offset;
+  return last < 0 ? 0 : min(n_all, last / BK + 1);
+}
+
+// The first q tile that key k0 is causally visible to: the one holding
+// row k0 - offset (the TPU kernels' k0 / BQ, shifted by the offset).
+__device__ __forceinline__ int first_q_tile(const Mask& mk, int k0, int BQ) {
+  return mk.causal ? max(0, (k0 - mk.offset) / BQ) : 0;
+}
+
 // Rows [s0, s0 + ROWS) of head h of X [B, S, heads, D], times mul, into
 // dst[r * pitch + d] (row-major) or dst[d * pitch + r] (transposed);
 // rows past S are zeros.
@@ -119,16 +281,12 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch,
   }
 }
 
-// -- K1: forward -------------------------------------------------------------
-// One block per (q tile, head, batch). Thread (ty, tx) owns query rows
-// ty + 16 i, key columns tx + 16 j of each score tile, and output columns
-// tx + 16 e.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out,
-                  float* __restrict__ lse, int S, int H, int HKV,
-                  float scale, int causal) {
+// -- K1 and K6: forward ------------------------------------------------------
+// One block per (q tile, head, batch), looping over the live k tiles.
+// Thread (ty, tx) owns query rows ty + 16 i, key columns tx + 16 j of each
+// score tile, and output columns tx + 16 e. kMasked = K6.
+template <typename T, int D, bool kMasked>
+__device__ __forceinline__ void fwd_core(const Params& p) {
   constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK;
   constexpr int RI = BQ / 16, CJ = BK / 16, E = D / 16;
   constexpr int QP = D + 1, KP = BK + 1, PP = BK + 1;
@@ -137,11 +295,18 @@ __global__ void __launch_bounds__(kThreads)
   float* Kt = Qs + BQ * QP;    // [D][KP]   K transposed
   float* Vs = Kt + D * KP;     // [BK][D]
   float* Ps = Vs + BK * D;     // [BQ][PP]  probabilities of the tile
+  int* bands = reinterpret_cast<int*>(Ps + BQ * PP);  // [n_fm][BK]
 
+  const T* __restrict__ q = static_cast<const T*>(p.q);
+  const T* __restrict__ k = static_cast<const T*>(p.k);
+  const T* __restrict__ v = static_cast<const T*>(p.v);
+  T* __restrict__ out = static_cast<T*>(p.out0);
+  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q1 = min(q0 + BQ, Sq);
   const int hk = h / (H / HKV);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  load_rows<T, D, BQ, false>(Qs, QP, q, b, q0, h, S, H, scale);
+  load_rows<T, D, BQ, false>(Qs, QP, q, b, q0, h, Sq, H, p.scale);
 
   float m[RI], l[RI], acc[RI][E];
 #pragma unroll
@@ -152,14 +317,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
   }
 
-  const int n_all = (S + BK - 1) / BK;
-  const int n_kt = causal ? min(n_all, (q0 + BQ + BK - 1) / BK) : n_all;
+  const int n_kt = k_tiles(p.mk, q1, BK, Sk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the last tile's readers are done
-    load_rows<T, D, BK, true>(Kt, KP, k, b, k0, hk, S, HKV, 1.f);
-    load_rows<T, D, BK, false>(Vs, D, v, b, k0, hk, S, HKV, 1.f);
-    __syncthreads();
+    TileFlags fl{false, false};
+    if (kMasked) {
+      fl = stage_key_bands<BK>(bands, p.mk, b, h, k0, Sk, q0, q1, BQ);
+      if (__syncthreads_and(fl.cover)) continue;  // a dead tile
+    }
+    load_rows<T, D, BK, true>(Kt, KP, k, b, k0, hk, Sk, HKV, 1.f);
+    load_rows<T, D, BK, false>(Vs, D, v, b, k0, hk, Sk, HKV, 1.f);
+    const bool interior = sync_interior<kMasked>(fl.clear);
 
     float s[RI][CJ];
 #pragma unroll
@@ -185,8 +354,10 @@ __global__ void __launch_bounds__(kThreads)
       float mb = -INFINITY;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const int c = k0 + tx + 16 * j;
-        if (c >= S || (causal && c > r)) s[i][j] = -INFINITY;
+        const int cl = tx + 16 * j;
+        if (!interior)
+          s[i][j] = mask_score<kMasked, BK>(p.mk, bands, s[i][j], b, h, r,
+                                            k0 + cl, cl, Sq, Sk);
         mb = fmaxf(mb, s[i][j]);
       }
       mb = row_max16(mb);
@@ -196,9 +367,9 @@ __global__ void __launch_bounds__(kThreads)
       float ps = 0.f;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - ms);
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
-        ps += p;
+        const float pr = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - ms);
+        Ps[(ty + 16 * i) * PP + tx + 16 * j] = pr;
+        ps += pr;
       }
       l[i] = l[i] * corr + ps;
       m[i] = mn;
@@ -224,28 +395,35 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < RI; ++i) {
     const float lt = fmaxf(row_sum16(l[i]), 1e-30f);
     const int r = q0 + ty + 16 * i;
-    if (r < S) {
-      T* orow = out + row_off(b, r, h, S, H, D);
+    if (r < Sq) {
+      T* orow = out + row_off(b, r, h, Sq, H, D);
 #pragma unroll
       for (int e = 0; e < E; ++e)
         orow[tx + 16 * e] = from_float<T>(acc[i][e] / lt);
-      if (lse != nullptr && tx == 0)
-        lse[(static_cast<long long>(b) * H + h) * S + r] = m[i] + logf(lt);
+      if (p.lse_out != nullptr && tx == 0)
+        p.lse_out[(static_cast<long long>(b) * H + h) * Sq + r] =
+            m[i] + logf(lt);
     }
   }
 }
 
-// -- K2: dq ------------------------------------------------------------------
-// One block per (q tile, head, batch), over the k tiles at or below the
-// diagonal. Thread (ty, tx) owns rows ty + 16 i, key columns tx + 16 j and
-// dq columns tx + 16 e; dq is accumulated in float32 and cast on store.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
+  fwd_core<T, D, false>(p);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dq,
-                     int S, int H, int HKV, float scale, int causal) {
+    fa_fwd_stream_kernel(const Params p) {
+  fwd_core<T, D, true>(p);
+}
+
+// -- K2: dq ------------------------------------------------------------------
+// One block per (q tile, head, batch), over the live k tiles. Thread (ty,
+// tx) owns rows ty + 16 i, key columns tx + 16 j and dq columns tx + 16 e;
+// dq is accumulated in float32 and cast on store.
+template <typename T, int D, bool kMasked>
+__global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(const Params p) {
   constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK;
   constexpr int RI = BQ / 16, CJ = BK / 16, E = D / 16;
   constexpr int QP = D + 1, KP = BK + 1, PP = BK + 1;
@@ -255,32 +433,44 @@ __global__ void __launch_bounds__(kThreads)
   float* Kt = dOs + BQ * QP;    // [D][KP]
   float* Vt = Kt + D * KP;      // [D][KP]
   float* dSs = Vt + D * KP;     // [BQ][PP]
+  int* bands = reinterpret_cast<int*>(dSs + BQ * PP);  // [n_fm][BK]
 
+  const T* __restrict__ q = static_cast<const T*>(p.q);
+  const T* __restrict__ k = static_cast<const T*>(p.k);
+  const T* __restrict__ v = static_cast<const T*>(p.v);
+  const T* __restrict__ dout = static_cast<const T*>(p.dout);
+  T* __restrict__ dq = static_cast<T*>(p.out0);
+  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q1 = min(q0 + BQ, Sq);
   const int hk = h / (H / HKV);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  load_rows<T, D, BQ, false>(Qs, QP, q, b, q0, h, S, H, 1.f);
-  load_rows<T, D, BQ, false>(dOs, QP, dout, b, q0, h, S, H, 1.f);
+  load_rows<T, D, BQ, false>(Qs, QP, q, b, q0, h, Sq, H, 1.f);
+  load_rows<T, D, BQ, false>(dOs, QP, dout, b, q0, h, Sq, H, 1.f);
 
-  const long long st = (static_cast<long long>(b) * H + h) * S;
+  const long long st = (static_cast<long long>(b) * H + h) * Sq;
   float lse_r[RI], del_r[RI], dqa[RI][E];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
-    lse_r[i] = r < S ? lse[st + r] : 0.f;
-    del_r[i] = r < S ? delta[st + r] : 0.f;
+    lse_r[i] = r < Sq ? p.lse_in[st + r] : 0.f;
+    del_r[i] = r < Sq ? p.delta[st + r] : 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) dqa[i][e] = 0.f;
   }
 
-  const int n_all = (S + BK - 1) / BK;
-  const int n_kt = causal ? min(n_all, (q0 + BQ + BK - 1) / BK) : n_all;
+  const int n_kt = k_tiles(p.mk, q1, BK, Sk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_rows<T, D, BK, true>(Kt, KP, k, b, k0, hk, S, HKV, 1.f);
-    load_rows<T, D, BK, true>(Vt, KP, v, b, k0, hk, S, HKV, 1.f);
-    __syncthreads();
+    TileFlags fl{false, false};
+    if (kMasked) {
+      fl = stage_key_bands<BK>(bands, p.mk, b, h, k0, Sk, q0, q1, BQ);
+      if (__syncthreads_and(fl.cover)) continue;  // a dead tile
+    }
+    load_rows<T, D, BK, true>(Kt, KP, k, b, k0, hk, Sk, HKV, 1.f);
+    load_rows<T, D, BK, true>(Vt, KP, v, b, k0, hk, Sk, HKV, 1.f);
+    const bool interior = sync_interior<kMasked>(fl.clear);
 
     float s[RI][CJ], dp[RI][CJ];
 #pragma unroll
@@ -313,10 +503,14 @@ __global__ void __launch_bounds__(kThreads)
       const int r = q0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const bool live = c < S && !(causal && c > r);
-        const float p = live ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        dSs[(ty + 16 * i) * PP + tx + 16 * j] = p * (dp[i][j] - del_r[i]);
+        const int cl = tx + 16 * j;
+        const float sc = s[i][j] * p.scale;
+        const float x = interior ? sc
+                                 : mask_score<kMasked, BK>(p.mk, bands, sc, b,
+                                                           h, r, k0 + cl, cl,
+                                                           Sq, Sk);
+        const float pr = isfinite(x) ? expf(x - lse_r[i]) : 0.f;
+        dSs[(ty + 16 * i) * PP + cl] = pr * (dp[i][j] - del_r[i]);
       }
     }
     __syncthreads();
@@ -337,11 +531,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
-    if (r < S) {
-      T* row = dq + row_off(b, r, h, S, H, D);
+    if (r < Sq) {
+      T* row = dq + row_off(b, r, h, Sq, H, D);
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        row[tx + 16 * e] = from_float<T>(dqa[i][e] * scale);
+        row[tx + 16 * e] = from_float<T>(dqa[i][e] * p.scale);
     }
   }
 }
@@ -349,17 +543,12 @@ __global__ void __launch_bounds__(kThreads)
 // -- K3: dk, dv --------------------------------------------------------------
 // One block per (k tile, kv head, batch). The TPU kernel accumulated across
 // its innermost grid axis (query head of the group, q tile); here that is
-// a loop inside the block, so dk/dv stay in registers with no atomics.
-// Thread (ty, tx) owns key rows ty + 16 j, query columns tx + 16 i of each
-// score tile and dk/dv columns tx + 16 e.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int H, int HKV, float scale,
-                      int causal) {
+// a loop inside the block, so dk/dv stay in registers with no atomics. Each
+// query head of the group reads its own band and mask rows. Thread (ty, tx)
+// owns key rows ty + 16 j, query columns tx + 16 i of each score tile and
+// dk/dv columns tx + 16 e.
+template <typename T, int D, bool kMasked>
+__global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
   constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK;
   constexpr int RI = BQ / 16, CJ = BK / 16, E = D / 16;
   constexpr int KP = D + 1, QTP = BQ + 1;
@@ -372,12 +561,20 @@ __global__ void __launch_bounds__(kThreads)
   float* dSt = Pt + BK * QTP;    // [BK][QTP] ds transposed
   float* lse_s = dSt + BK * QTP;  // [BQ]
   float* del_s = lse_s + BQ;      // [BQ]
+  int* bands = reinterpret_cast<int*>(del_s + BQ);  // [n_fm][BK]
 
+  const T* __restrict__ q = static_cast<const T*>(p.q);
+  const T* __restrict__ k = static_cast<const T*>(p.k);
+  const T* __restrict__ v = static_cast<const T*>(p.v);
+  const T* __restrict__ dout = static_cast<const T*>(p.dout);
+  T* __restrict__ dk = static_cast<T*>(p.out0);
+  T* __restrict__ dv = static_cast<T*>(p.out1);
+  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
   const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
   const int G = H / HKV;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  load_rows<T, D, BK, false>(Ks, KP, k, b, k0, hk, S, HKV, 1.f);
-  load_rows<T, D, BK, false>(Vs, KP, v, b, k0, hk, S, HKV, 1.f);
+  load_rows<T, D, BK, false>(Ks, KP, k, b, k0, hk, Sk, HKV, 1.f);
+  load_rows<T, D, BK, false>(Vs, KP, v, b, k0, hk, Sk, HKV, 1.f);
 
   float dka[CJ][E], dva[CJ][E];
 #pragma unroll
@@ -385,21 +582,36 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < E; ++e) dka[j][e] = dva[j][e] = 0.f;
 
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int qt0 = causal ? k0 / BQ : 0;  // q tiles from the diagonal on
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int qt0 = first_q_tile(p.mk, k0, BQ);
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const long long st = (static_cast<long long>(b) * H + h) * S;
+    const long long st = (static_cast<long long>(b) * H + h) * Sq;
+    if (kMasked && p.mk.n_fm > 0) {
+      __syncthreads();  // the last head's readers of the bands are done
+      stage_bands<BK, kThreads>(bands, p.mk, b, h, k0, Sk);
+      __syncthreads();
+    }
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      load_rows<T, D, BQ, true>(Qt, QTP, q, b, q0, h, S, H, 1.f);
-      load_rows<T, D, BQ, true>(dOt, QTP, dout, b, q0, h, S, H, 1.f);
-      for (int r = threadIdx.x; r < BQ; r += kThreads) {
-        lse_s[r] = q0 + r < S ? lse[st + q0 + r] : 0.f;
-        del_s[r] = q0 + r < S ? delta[st + q0 + r] : 0.f;
+      const int q0 = qt * BQ, q1 = min(q0 + BQ, Sq);
+      TileFlags fl{false, false};
+      if (kMasked) {
+        fl = tile_flags(p.mk, q0, q1, BQ, k0, BK, Sk);
+        const int cl = threadIdx.x;
+        if (cl < BK)
+          key_flags(fl, bands + cl, BK, p.mk.n_fm, k0 + cl >= Sk, q0, q1);
+        // also the barrier after the last q tile's readers
+        if (__syncthreads_and(fl.cover)) continue;  // a dead tile
+      } else {
+        __syncthreads();
       }
-      __syncthreads();
+      load_rows<T, D, BQ, true>(Qt, QTP, q, b, q0, h, Sq, H, 1.f);
+      load_rows<T, D, BQ, true>(dOt, QTP, dout, b, q0, h, Sq, H, 1.f);
+      for (int r = threadIdx.x; r < BQ; r += kThreads) {
+        lse_s[r] = q0 + r < Sq ? p.lse_in[st + q0 + r] : 0.f;
+        del_s[r] = q0 + r < Sq ? p.delta[st + q0 + r] : 0.f;
+      }
+      const bool interior = sync_interior<kMasked>(fl.clear);
 
       float s[CJ][RI], dp[CJ][RI];
 #pragma unroll
@@ -429,14 +641,18 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const int c = k0 + ty + 16 * j;
+        const int cl = ty + 16 * j;
 #pragma unroll
         for (int i = 0; i < RI; ++i) {
-          const int rl = tx + 16 * i, r = q0 + rl;
-          const bool live = r < S && c < S && !(causal && c > r);
-          const float p = live ? expf(s[j][i] * scale - lse_s[rl]) : 0.f;
-          Pt[(ty + 16 * j) * QTP + rl] = p;
-          dSt[(ty + 16 * j) * QTP + rl] = p * (dp[j][i] - del_s[rl]);
+          const int rl = tx + 16 * i;
+          const float sc = s[j][i] * p.scale;
+          const float x =
+              interior ? sc
+                       : mask_score<kMasked, BK>(p.mk, bands, sc, b, h,
+                                                 q0 + rl, k0 + cl, cl, Sq, Sk);
+          const float pr = isfinite(x) ? expf(x - lse_s[rl]) : 0.f;
+          Pt[cl * QTP + rl] = pr;
+          dSt[cl * QTP + rl] = pr * (dp[j][i] - del_s[rl]);
         }
       }
       __syncthreads();
@@ -465,12 +681,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < CJ; ++j) {
     const int c = k0 + ty + 16 * j;
-    if (c < S) {
-      T* krow = dk + row_off(b, c, hk, S, HKV, D);
-      T* vrow = dv + row_off(b, c, hk, S, HKV, D);
+    if (c < Sk) {
+      T* krow = dk + row_off(b, c, hk, Sk, HKV, D);
+      T* vrow = dv + row_off(b, c, hk, Sk, HKV, D);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        krow[tx + 16 * e] = from_float<T>(dka[j][e] * scale);
+        krow[tx + 16 * e] = from_float<T>(dka[j][e] * p.scale);
         vrow[tx + 16 * e] = from_float<T>(dva[j][e]);
       }
     }
@@ -478,9 +694,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -- the tensor-core path: bf16, head_dim 64 or 128 ---------------------------
-// The same three functions with every product on mma.sync.m16n8k16 (bf16
+// The same four functions with every product on mma.sync.m16n8k16 (bf16
 // in, float32 accumulate). 128 threads, four warps; each warp owns 16 rows
-// of the block's tile (query rows in K1/K2, key rows in K3) and keeps its
+// of the block's tile (query rows in K1/K6/K2, key rows in K3) and keeps its
 // accumulators in the mma fragment layout: thread (g = lane / 4, t = lane
 // % 4) holds rows g and g + 8, columns 2t and 2t + 1 of each 8-wide tile.
 // Probabilities and ds are rounded to bf16 for the second product of each
@@ -585,25 +801,29 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 constexpr int kMmaBQ = 64, kMmaBK = 64, kMmaBQ3 = 32;
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, int S, int H, int HKV,
-                      float scale, int causal) {
+template <int D, bool kMasked>
+__device__ __forceinline__ void fwd_mma(const Params& p) {
   constexpr int BQ = kMmaBQ, BK = kMmaBK, LD = D + 8, LDT = BK + 8;
   constexpr int KS = D / 16, NK = BK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
   bf16* Ks = Qs + BQ * LD;                        // [BK][LD]
   bf16* Vt = Ks + BK * LD;                        // [D][LDT]  V transposed
+  int* bands = reinterpret_cast<int*>(Vt + D * LDT);  // [n_fm][BK]
 
+  const bf16* __restrict__ q = static_cast<const bf16*>(p.q);
+  const bf16* __restrict__ k = static_cast<const bf16*>(p.k);
+  const bf16* __restrict__ v = static_cast<const bf16*>(p.v);
+  bf16* __restrict__ out = static_cast<bf16*>(p.out0);
+  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
+  const float scale = p.scale;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q1 = min(q0 + BQ, Sq);
   const int hk = h / (H / HKV);
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
             t = threadIdx.x % 4;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  stage<D, BQ, false>(Qs, q, b, q0, h, S, H);
+  stage<D, BQ, false>(Qs, q, b, q0, h, Sq, H);
   __syncthreads();
   uint32_t qa[KS][4];
 #pragma unroll
@@ -615,14 +835,18 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  const int n_all = (S + BK - 1) / BK;
-  const int n_kt = causal ? min(n_all, (q0 + BQ + BK - 1) / BK) : n_all;
+  const int n_kt = k_tiles(p.mk, q1, BK, Sk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    stage<D, BK, false>(Ks, k, b, k0, hk, S, HKV);
-    stage<D, BK, true>(Vt, v, b, k0, hk, S, HKV);
-    __syncthreads();
+    TileFlags fl{false, false};
+    if (kMasked) {
+      fl = stage_key_bands<BK>(bands, p.mk, b, h, k0, Sk, q0, q1, BQ);
+      if (__syncthreads_and(fl.cover)) continue;  // a dead tile
+    }
+    stage<D, BK, false>(Ks, k, b, k0, hk, Sk, HKV);
+    stage<D, BK, true>(Vt, v, b, k0, hk, Sk, HKV);
+    const bool interior = sync_interior<kMasked>(fl.clear);
 
     float s[NK][4];
 #pragma unroll
@@ -635,9 +859,13 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int j = 0; j < NK; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = k0 + j * 8 + 2 * t + (e & 1), r = e < 2 ? r0 : r1;
-        float x = s[j][e] * scale;
-        if (c >= S || (causal && c > r)) x = -INFINITY;
+        const int cl = j * 8 + 2 * t + (e & 1);
+        const float sc = s[j][e] * scale;
+        const float x =
+            interior ? sc
+                     : mask_score<kMasked, BK>(p.mk, bands, sc, b, h,
+                                               e < 2 ? r0 : r1, k0 + cl, cl,
+                                               Sq, Sk);
         s[j][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
       }
@@ -651,9 +879,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = s[j][e];
-        const float p = x == -INFINITY ? 0.f : expf(x - (e < 2 ? ms0 : ms1));
-        s[j][e] = p;
-        if (e < 2) ps0 += p; else ps1 += p;
+        const float pr = x == -INFINITY ? 0.f : expf(x - (e < 2 ? ms0 : ms1));
+        s[j][e] = pr;
+        if (e < 2) ps0 += pr; else ps1 += pr;
       }
     l0 = l0 * corr0 + ps0;
     l1 = l1 * corr1 + ps1;
@@ -674,35 +902,40 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   const float lt0 = fmaxf(quad_sum(l0), 1e-30f);
   const float lt1 = fmaxf(quad_sum(l1), 1e-30f);
-  const long long st = (static_cast<long long>(b) * H + h) * S;
-  if (r0 < S) {
-    bf16* row = out + row_off(b, r0, h, S, H, D) + 2 * t;
+  const long long st = (static_cast<long long>(b) * H + h) * Sq;
+  if (r0 < Sq) {
+    bf16* row = out + row_off(b, r0, h, Sq, H, D) + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8) =
           pack_bf16(o[n][0] / lt0, o[n][1] / lt0);
-    if (lse != nullptr && t == 0) lse[st + r0] = m0 + logf(lt0);
+    if (p.lse_out != nullptr && t == 0) p.lse_out[st + r0] = m0 + logf(lt0);
   }
-  if (r1 < S) {
-    bf16* row = out + row_off(b, r1, h, S, H, D) + 2 * t;
+  if (r1 < Sq) {
+    bf16* row = out + row_off(b, r1, h, Sq, H, D) + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8) =
           pack_bf16(o[n][2] / lt1, o[n][3] / lt1);
-    if (lse != nullptr && t == 0) lse[st + r1] = m1 + logf(lt1);
+    if (p.lse_out != nullptr && t == 0) p.lse_out[st + r1] = m1 + logf(lt1);
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-    fa_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int S, int H, int HKV,
-                         float scale, int causal) {
+    fa_fwd_mma_kernel(const Params p) {
+  fwd_mma<D, false>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    fa_fwd_stream_mma_kernel(const Params p) {
+  fwd_mma<D, true>(p);
+}
+
+template <int D, bool kMasked>
+__global__ void __launch_bounds__(kMmaThreads)
+    fa_bwd_dq_mma_kernel(const Params p) {
   constexpr int BQ = kMmaBQ, BK = kMmaBK, LD = D + 8, LDT = BK + 8;
   constexpr int KS = D / 16, NK = BK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -711,19 +944,28 @@ __global__ void __launch_bounds__(kMmaThreads)
   bf16* Ks = dOs + BQ * LD;                       // [BK][LD]
   bf16* Vs = Ks + BK * LD;                        // [BK][LD]
   bf16* Kt = Vs + BK * LD;                        // [D][LDT]  K transposed
+  int* bands = reinterpret_cast<int*>(Kt + D * LDT);  // [n_fm][BK]
 
+  const bf16* __restrict__ q = static_cast<const bf16*>(p.q);
+  const bf16* __restrict__ k = static_cast<const bf16*>(p.k);
+  const bf16* __restrict__ v = static_cast<const bf16*>(p.v);
+  const bf16* __restrict__ dout = static_cast<const bf16*>(p.dout);
+  bf16* __restrict__ dq = static_cast<bf16*>(p.out0);
+  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
+  const float scale = p.scale;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q1 = min(q0 + BQ, Sq);
   const int hk = h / (H / HKV);
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
             t = threadIdx.x % 4;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  stage<D, BQ, false>(Qs, q, b, q0, h, S, H);
-  stage<D, BQ, false>(dOs, dout, b, q0, h, S, H);
-  const long long st = (static_cast<long long>(b) * H + h) * S;
-  const float lse0 = r0 < S ? lse[st + r0] : 0.f;
-  const float lse1 = r1 < S ? lse[st + r1] : 0.f;
-  const float del0 = r0 < S ? delta[st + r0] : 0.f;
-  const float del1 = r1 < S ? delta[st + r1] : 0.f;
+  stage<D, BQ, false>(Qs, q, b, q0, h, Sq, H);
+  stage<D, BQ, false>(dOs, dout, b, q0, h, Sq, H);
+  const long long st = (static_cast<long long>(b) * H + h) * Sq;
+  const float lse0 = r0 < Sq ? p.lse_in[st + r0] : 0.f;
+  const float lse1 = r1 < Sq ? p.lse_in[st + r1] : 0.f;
+  const float del0 = r0 < Sq ? p.delta[st + r0] : 0.f;
+  const float del1 = r1 < Sq ? p.delta[st + r1] : 0.f;
   const bf16* Qw = Qs + warp * 16 * LD;
   const bf16* dOw = dOs + warp * 16 * LD;
 
@@ -732,15 +974,19 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int n = 0; n < ND; ++n)
     dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
-  const int n_all = (S + BK - 1) / BK;
-  const int n_kt = causal ? min(n_all, (q0 + BQ + BK - 1) / BK) : n_all;
+  const int n_kt = k_tiles(p.mk, q1, BK, Sk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    stage<D, BK, false>(Ks, k, b, k0, hk, S, HKV);
-    stage<D, BK, false>(Vs, v, b, k0, hk, S, HKV);
-    stage<D, BK, true>(Kt, k, b, k0, hk, S, HKV);
-    __syncthreads();
+    TileFlags fl{false, false};
+    if (kMasked) {
+      fl = stage_key_bands<BK>(bands, p.mk, b, h, k0, Sk, q0, q1, BQ);
+      if (__syncthreads_and(fl.cover)) continue;  // a dead tile
+    }
+    stage<D, BK, false>(Ks, k, b, k0, hk, Sk, HKV);
+    stage<D, BK, false>(Vs, v, b, k0, hk, Sk, HKV);
+    stage<D, BK, true>(Kt, k, b, k0, hk, Sk, HKV);
+    const bool interior = sync_interior<kMasked>(fl.clear);
 
     float s[NK][4], dp[NK][4];
 #pragma unroll
@@ -759,11 +1005,15 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int j = 0; j < NK; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = k0 + j * 8 + 2 * t + (e & 1), r = e < 2 ? r0 : r1;
-        const bool live = c < S && !(causal && c > r);
-        const float p =
-            live ? expf(s[j][e] * scale - (e < 2 ? lse0 : lse1)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? del0 : del1));  // ds
+        const int cl = j * 8 + 2 * t + (e & 1);
+        const float sc = s[j][e] * scale;
+        const float x =
+            interior ? sc
+                     : mask_score<kMasked, BK>(p.mk, bands, sc, b, h,
+                                               e < 2 ? r0 : r1, k0 + cl, cl,
+                                               Sq, Sk);
+        const float pr = isfinite(x) ? expf(x - (e < 2 ? lse0 : lse1)) : 0.f;
+        s[j][e] = pr * (dp[j][e] - (e < 2 ? del0 : del1));  // ds
       }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -773,15 +1023,15 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
   }
 
-  if (r0 < S) {
-    bf16* row = dq + row_off(b, r0, h, S, H, D) + 2 * t;
+  if (r0 < Sq) {
+    bf16* row = dq + row_off(b, r0, h, Sq, H, D) + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8) =
           pack_bf16(dqa[n][0] * scale, dqa[n][1] * scale);
   }
-  if (r1 < S) {
-    bf16* row = dq + row_off(b, r1, h, S, H, D) + 2 * t;
+  if (r1 < Sq) {
+    bf16* row = dq + row_off(b, r1, h, Sq, H, D) + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8) =
@@ -791,18 +1041,11 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // One block per (64-key tile, kv head, batch); each warp owns 16 keys and
 // computes the transposed scores s^T = K Q^T of its keys against a 32-row
-// q tile, looping over the G query heads and the q tiles from the
-// diagonal on, dk and dv in registers.
-template <int D>
+// q tile, looping over the G query heads (each with its own band and mask
+// rows) and the live q tiles from the diagonal on, dk and dv in registers.
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(kMmaThreads)
-    fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int S, int H, int HKV, float scale, int causal) {
+    fa_bwd_dkv_mma_kernel(const Params p) {
   constexpr int BQ = kMmaBQ3, BK = kMmaBK, LD = D + 8, LDT = BQ + 8;
   constexpr int KS = D / 16, NQ = BQ / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -814,14 +1057,23 @@ __global__ void __launch_bounds__(kMmaThreads)
   bf16* dOt = Qt + D * LDT;                       // [D][LDT]  dO transposed
   float* lse_s = reinterpret_cast<float*>(dOt + D * LDT);  // [BQ]
   float* del_s = lse_s + BQ;                                 // [BQ]
+  int* bands = reinterpret_cast<int*>(del_s + BQ);  // [n_fm][BK]
 
+  const bf16* __restrict__ q = static_cast<const bf16*>(p.q);
+  const bf16* __restrict__ k = static_cast<const bf16*>(p.k);
+  const bf16* __restrict__ v = static_cast<const bf16*>(p.v);
+  const bf16* __restrict__ dout = static_cast<const bf16*>(p.dout);
+  bf16* __restrict__ dk = static_cast<bf16*>(p.out0);
+  bf16* __restrict__ dv = static_cast<bf16*>(p.out1);
+  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
+  const float scale = p.scale;
   const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
   const int G = H / HKV;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
             t = threadIdx.x % 4;
   const int c0 = k0 + warp * 16 + g, c1 = c0 + 8;  // this thread's keys
-  stage<D, BK, false>(Ks, k, b, k0, hk, S, HKV);
-  stage<D, BK, false>(Vs, v, b, k0, hk, S, HKV);
+  stage<D, BK, false>(Ks, k, b, k0, hk, Sk, HKV);
+  stage<D, BK, false>(Vs, v, b, k0, hk, Sk, HKV);
   const bf16* Kw = Ks + warp * 16 * LD;
   const bf16* Vw = Vs + warp * 16 * LD;
 
@@ -831,23 +1083,38 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int qt0 = causal ? k0 / BQ : 0;  // q tiles from the diagonal on
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int qt0 = first_q_tile(p.mk, k0, BQ);
   for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
-    const long long st = (static_cast<long long>(b) * H + h) * S;
+    const long long st = (static_cast<long long>(b) * H + h) * Sq;
+    if (kMasked && p.mk.n_fm > 0) {
+      __syncthreads();  // the last head's readers of the bands are done
+      stage_bands<BK, kMmaThreads>(bands, p.mk, b, h, k0, Sk);
+      __syncthreads();
+    }
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      stage<D, BQ, false>(Qs, q, b, q0, h, S, H);
-      stage<D, BQ, false>(dOs, dout, b, q0, h, S, H);
-      stage<D, BQ, true>(Qt, q, b, q0, h, S, H);
-      stage<D, BQ, true>(dOt, dout, b, q0, h, S, H);
-      for (int r = threadIdx.x; r < BQ; r += kMmaThreads) {
-        lse_s[r] = q0 + r < S ? lse[st + q0 + r] : 0.f;
-        del_s[r] = q0 + r < S ? delta[st + q0 + r] : 0.f;
+      const int q0 = qt * BQ, q1 = min(q0 + BQ, Sq);
+      TileFlags fl{false, false};
+      if (kMasked) {
+        fl = tile_flags(p.mk, q0, q1, BQ, k0, BK, Sk);
+        const int cl = threadIdx.x;
+        if (cl < BK)
+          key_flags(fl, bands + cl, BK, p.mk.n_fm, k0 + cl >= Sk, q0, q1);
+        // also the barrier after the last q tile's readers
+        if (__syncthreads_and(fl.cover)) continue;  // a dead tile
+      } else {
+        __syncthreads();
       }
-      __syncthreads();
+      stage<D, BQ, false>(Qs, q, b, q0, h, Sq, H);
+      stage<D, BQ, false>(dOs, dout, b, q0, h, Sq, H);
+      stage<D, BQ, true>(Qt, q, b, q0, h, Sq, H);
+      stage<D, BQ, true>(dOt, dout, b, q0, h, Sq, H);
+      for (int r = threadIdx.x; r < BQ; r += kMmaThreads) {
+        lse_s[r] = q0 + r < Sq ? p.lse_in[st + q0 + r] : 0.f;
+        del_s[r] = q0 + r < Sq ? p.delta[st + q0 + r] : 0.f;
+      }
+      const bool interior = sync_interior<kMasked>(fl.clear);
 
       float s[NQ][4], dp[NQ][4];  // s^T and dp^T: rows keys, columns q
 #pragma unroll
@@ -866,12 +1133,16 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int ql = j * 8 + 2 * t + (e & 1), r = q0 + ql;
+          const int ql = j * 8 + 2 * t + (e & 1);
           const int c = e < 2 ? c0 : c1;
-          const bool live = r < S && c < S && !(causal && c > r);
-          const float p = live ? expf(s[j][e] * scale - lse_s[ql]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - del_s[ql]);  // ds^T
+          const float sc = s[j][e] * scale;
+          const float x =
+              interior ? sc
+                       : mask_score<kMasked, BK>(p.mk, bands, sc, b, h,
+                                                 q0 + ql, c, c - k0, Sq, Sk);
+          const float pr = isfinite(x) ? expf(x - lse_s[ql]) : 0.f;
+          s[j][e] = pr;
+          dp[j][e] = pr * (dp[j][e] - del_s[ql]);  // ds^T
         }
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
@@ -884,9 +1155,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
   }
 
-  if (c0 < S) {
-    bf16* krow = dk + row_off(b, c0, hk, S, HKV, D) + 2 * t;
-    bf16* vrow = dv + row_off(b, c0, hk, S, HKV, D) + 2 * t;
+  if (c0 < Sk) {
+    bf16* krow = dk + row_off(b, c0, hk, Sk, HKV, D) + 2 * t;
+    bf16* vrow = dv + row_off(b, c0, hk, Sk, HKV, D) + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<uint32_t*>(krow + n * 8) =
@@ -895,9 +1166,9 @@ __global__ void __launch_bounds__(kMmaThreads)
           pack_bf16(dva[n][0], dva[n][1]);
     }
   }
-  if (c1 < S) {
-    bf16* krow = dk + row_off(b, c1, hk, S, HKV, D) + 2 * t;
-    bf16* vrow = dv + row_off(b, c1, hk, S, HKV, D) + 2 * t;
+  if (c1 < Sk) {
+    bf16* krow = dk + row_off(b, c1, hk, Sk, HKV, D) + 2 * t;
+    bf16* vrow = dv + row_off(b, c1, hk, Sk, HKV, D) + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<uint32_t*>(krow + n * 8) =
@@ -910,57 +1181,56 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // -- launches ----------------------------------------------------------------
 
+// The bands' shared memory of a masked arm: up to 4 rows of BK ints.
+constexpr int band_smem(int bk, bool masked) { return masked ? 16 * bk : 0; }
+
 template <int D>
-constexpr int fwd_smem() {
+constexpr int fwd_smem(bool masked) {
   return 4 * (Tile<D>::BQ * (D + 1) + D * (Tile<D>::BK + 1) +
-              Tile<D>::BK * D + Tile<D>::BQ * (Tile<D>::BK + 1));
+              Tile<D>::BK * D + Tile<D>::BQ * (Tile<D>::BK + 1)) +
+         band_smem(Tile<D>::BK, masked);
 }
 template <int D>
-constexpr int dq_smem() {
+constexpr int dq_smem(bool masked) {
   return 4 * (2 * Tile<D>::BQ * (D + 1) + 2 * D * (Tile<D>::BK + 1) +
-              Tile<D>::BQ * (Tile<D>::BK + 1));
+              Tile<D>::BQ * (Tile<D>::BK + 1)) +
+         band_smem(Tile<D>::BK, masked);
 }
 template <int D>
-constexpr int dkv_smem() {
+constexpr int dkv_smem(bool masked) {
   return 4 * (2 * Tile<D>::BK * (D + 1) + 2 * D * (Tile<D>::BQ + 1) +
-              2 * Tile<D>::BK * (Tile<D>::BQ + 1) + 2 * Tile<D>::BQ);
+              2 * Tile<D>::BK * (Tile<D>::BQ + 1) + 2 * Tile<D>::BQ) +
+         band_smem(Tile<D>::BK, masked);
 }
 template <int D>
-constexpr int fwd_mma_smem() {
-  return 2 * ((kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8));
+constexpr int fwd_mma_smem(bool masked) {
+  return 2 * ((kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8)) +
+         band_smem(kMmaBK, masked);
 }
 template <int D>
-constexpr int dq_mma_smem() {
-  return 2 * (2 * (kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8));
+constexpr int dq_mma_smem(bool masked) {
+  return 2 * (2 * (kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8)) +
+         band_smem(kMmaBK, masked);
 }
 template <int D>
-constexpr int dkv_mma_smem() {
+constexpr int dkv_mma_smem(bool masked) {
   return 2 * (2 * (kMmaBK + kMmaBQ3) * (D + 8) + 2 * D * (kMmaBQ3 + 8)) +
-         4 * 2 * kMmaBQ3;
+         4 * 2 * kMmaBQ3 + band_smem(kMmaBK, masked);
 }
 
-struct Args {
-  const void *q, *k, *v, *o_or_dout;
-  const float *lse_in, *delta;
-  void *out0, *out1;  // forward: out; dq: dq; dkv: dk, dv
-  float* lse_out;
-  int B, S, H, HKV;
-  float scale;
-  int causal;
-  cudaStream_t stream;
-};
-
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+// K1 and K6 are the two forward kernels; K2 and K3 take their masked arm
+// when there is a mask or a band.
+enum Which { kFwd = 0, kStream = 1, kDq = 2, kDkv = 3 };
 
 // Set the kernel's dynamic shared memory, launch, and return
 // cudaGetLastError() (0 = launched).
-template <typename Kernel, typename... Ps>
+template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int threads, int smem,
-           cudaStream_t stream, Ps... ps) {
+           cudaStream_t stream, const Params& p) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, threads, smem, stream>>>(ps...);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -968,112 +1238,146 @@ int tiles(int n, int tile) { return (n + tile - 1) / tile; }
 
 // The CUDA-core kernels: float32, and bf16 at head_dim 256.
 template <typename T, int D>
-int launch_core(const Args& a, int which) {
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v),
-          *dout = static_cast<const T*>(a.o_or_dout);
-  T *out0 = static_cast<T*>(a.out0), *out1 = static_cast<T*>(a.out1);
-  const dim3 qgrid(tiles(a.S, Tile<D>::BQ), a.H, a.B);
+int launch_core(const Params& p, int which, bool masked,
+                cudaStream_t stream) {
+  const dim3 qgrid(tiles(p.Sq, Tile<D>::BQ), p.H, p.B);
+  const dim3 kgrid(tiles(p.Sk, Tile<D>::BK), p.HKV, p.B);
   switch (which) {
     case kFwd:
-      return launch(fa_fwd_kernel<T, D>, qgrid, kThreads, fwd_smem<D>(),
-                    a.stream, q, k, v, out0, a.lse_out, a.S, a.H, a.HKV,
-                    a.scale, a.causal);
+      return launch(fa_fwd_kernel<T, D>, qgrid, kThreads, fwd_smem<D>(false),
+                    stream, p);
+    case kStream:
+      return launch(fa_fwd_stream_kernel<T, D>, qgrid, kThreads,
+                    fwd_smem<D>(true), stream, p);
     case kDq:
-      return launch(fa_bwd_dq_kernel<T, D>, qgrid, kThreads, dq_smem<D>(),
-                    a.stream, q, k, v, dout, a.lse_in, a.delta, out0, a.S,
-                    a.H, a.HKV, a.scale, a.causal);
+      return masked ? launch(fa_bwd_dq_kernel<T, D, true>, qgrid, kThreads,
+                             dq_smem<D>(true), stream, p)
+                    : launch(fa_bwd_dq_kernel<T, D, false>, qgrid, kThreads,
+                             dq_smem<D>(false), stream, p);
     case kDkv:
-      return launch(fa_bwd_dkv_kernel<T, D>,
-                    dim3(tiles(a.S, Tile<D>::BK), a.HKV, a.B), kThreads,
-                    dkv_smem<D>(), a.stream, q, k, v, dout, a.lse_in,
-                    a.delta, out0, out1, a.S, a.H, a.HKV, a.scale, a.causal);
+      return masked ? launch(fa_bwd_dkv_kernel<T, D, true>, kgrid, kThreads,
+                             dkv_smem<D>(true), stream, p)
+                    : launch(fa_bwd_dkv_kernel<T, D, false>, kgrid, kThreads,
+                             dkv_smem<D>(false), stream, p);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The tensor-core kernels: bf16 at head_dim 64 and 128.
 template <int D>
-int launch_mma(const Args& a, int which) {
-  const bf16 *q = static_cast<const bf16*>(a.q),
-             *k = static_cast<const bf16*>(a.k),
-             *v = static_cast<const bf16*>(a.v),
-             *dout = static_cast<const bf16*>(a.o_or_dout);
-  bf16 *out0 = static_cast<bf16*>(a.out0), *out1 = static_cast<bf16*>(a.out1);
-  const dim3 qgrid(tiles(a.S, kMmaBQ), a.H, a.B);
+int launch_mma(const Params& p, int which, bool masked, cudaStream_t stream) {
+  const dim3 qgrid(tiles(p.Sq, kMmaBQ), p.H, p.B);
+  const dim3 kgrid(tiles(p.Sk, kMmaBK), p.HKV, p.B);
   switch (which) {
     case kFwd:
       return launch(fa_fwd_mma_kernel<D>, qgrid, kMmaThreads,
-                    fwd_mma_smem<D>(), a.stream, q, k, v, out0, a.lse_out,
-                    a.S, a.H, a.HKV, a.scale, a.causal);
+                    fwd_mma_smem<D>(false), stream, p);
+    case kStream:
+      return launch(fa_fwd_stream_mma_kernel<D>, qgrid, kMmaThreads,
+                    fwd_mma_smem<D>(true), stream, p);
     case kDq:
-      return launch(fa_bwd_dq_mma_kernel<D>, qgrid, kMmaThreads,
-                    dq_mma_smem<D>(), a.stream, q, k, v, dout, a.lse_in,
-                    a.delta, out0, a.S, a.H, a.HKV, a.scale, a.causal);
+      return masked ? launch(fa_bwd_dq_mma_kernel<D, true>, qgrid,
+                             kMmaThreads, dq_mma_smem<D>(true), stream, p)
+                    : launch(fa_bwd_dq_mma_kernel<D, false>, qgrid,
+                             kMmaThreads, dq_mma_smem<D>(false), stream, p);
     case kDkv:
-      return launch(fa_bwd_dkv_mma_kernel<D>,
-                    dim3(tiles(a.S, kMmaBK), a.HKV, a.B), kMmaThreads,
-                    dkv_mma_smem<D>(), a.stream, q, k, v, dout, a.lse_in,
-                    a.delta, out0, out1, a.S, a.H, a.HKV, a.scale, a.causal);
+      return masked ? launch(fa_bwd_dkv_mma_kernel<D, true>, kgrid,
+                             kMmaThreads, dkv_mma_smem<D>(true), stream, p)
+                    : launch(fa_bwd_dkv_mma_kernel<D, false>, kgrid,
+                             kMmaThreads, dkv_mma_smem<D>(false), stream, p);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int dispatch(const Args& a, int head_dim, int dtype, int which) {
-  if (a.B <= 0 || a.S <= 0) return 0;
-  if (a.HKV <= 0 || a.H % a.HKV != 0 || a.H > 65535 || a.B > 65535)
+int dispatch(const Params& p, int head_dim, int dtype, int which,
+             cudaStream_t stream) {
+  const Mask& mk = p.mk;
+  const bool masked = mk.add != nullptr || mk.n_fm > 0;
+  if (p.B == 0) return 0;
+  if (p.B < 0 || p.Sq <= 0 || p.Sk <= 0 || p.HKV <= 0 || p.H % p.HKV != 0 ||
+      p.H > 65535 || p.B > 65535 || (mk.n_fm != 0 && mk.n_fm != 2 &&
+                                     mk.n_fm != 4) ||
+      (mk.n_fm > 0 && mk.fm == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // K1 takes neither a mask nor bands nor Sq != Sk: those are K6's
+  if (which == kFwd && (masked || p.Sq != p.Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32) {
     switch (head_dim) {
-      case 64: return launch_core<float, 64>(a, which);
-      case 128: return launch_core<float, 128>(a, which);
-      case 256: return launch_core<float, 256>(a, which);
+      case 64: return launch_core<float, 64>(p, which, masked, stream);
+      case 128: return launch_core<float, 128>(p, which, masked, stream);
+      case 256: return launch_core<float, 256>(p, which, masked, stream);
     }
   } else if (dtype == kBF16) {
     switch (head_dim) {
-      case 64: return launch_mma<64>(a, which);
-      case 128: return launch_mma<128>(a, which);
-      case 256: return launch_core<bf16, 256>(a, which);
+      case 64: return launch_mma<64>(p, which, masked, stream);
+      case 128: return launch_mma<128>(p, which, masked, stream);
+      case 256: return launch_core<bf16, 256>(p, which, masked, stream);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+Mask make_mask(int Sq, int Sk, int causal, const float* add, long long a_b,
+               long long a_h, long long a_r, long long a_c, const int* fm,
+               int n_fm, long long f_band, long long f_b, long long f_h) {
+  return Mask{causal, Sk - Sq, add, a_b, a_h, a_r, a_c,
+              fm, n_fm, f_band, f_b, f_h};
+}
+
 }  // namespace
 
 // Each entry returns cudaGetLastError() after its launch (0 = launched),
-// or cudaErrorInvalidValue for a shape or dtype the kernels do not take.
-// The wrapper has checked devices, dtypes, shapes and contiguity.
+// or cudaErrorInvalidValue for a shape, dtype or mask the kernels do not
+// take. The wrapper has checked devices, dtypes, shapes and contiguity.
+// Common arguments: B, Sq, Sk, H, HKV, head_dim; scale; causal; the
+// additive mask (or null) and its element strides over (batch, head, row,
+// key); the bands [n_fm, MB, MH, Sk] (or null), n_fm (0, 2 or 4) and their
+// strides over (band, batch, head); dtype; stream.
+#define FA_MASK_ARGS                                                        \
+  int B, int Sq, int Sk, int H, int HKV, int head_dim, float scale,         \
+      int causal, const float *mask, long long m_b, long long m_h,          \
+      long long m_r, long long m_c, const int *fm, int n_fm,                \
+      long long f_band, long long f_b, long long f_h, int dtype, void *stream
+#define FA_MASK                                                             \
+  make_mask(Sq, Sk, causal, mask, m_b, m_h, m_r, m_c, fm, n_fm, f_band, f_b, \
+            f_h)
 
-// K1. out [B,S,H,D]; lse [B,H,S] float32, or null when not wanted.
+// K1. out [B,S,H,D]; lse [B,H,S] float32, or null when not wanted. Sq ==
+// Sk, no mask, no bands.
 extern "C" int fa_forward(const void* q, const void* k, const void* v,
-                          void* out, float* lse, int B, int S, int H,
-                          int HKV, int head_dim, float scale, int causal,
-                          int dtype, void* stream) {
-  Args a{q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse, B, S, H,
-         HKV, scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, head_dim, dtype, kFwd);
+                          void* out, float* lse, FA_MASK_ARGS) {
+  const Params p{q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse,
+                 B, Sq, Sk, H, HKV, scale, FA_MASK};
+  return dispatch(p, head_dim, dtype, kFwd,
+                  static_cast<cudaStream_t>(stream));
 }
 
-// K2. dq [B,S,H,D] from q, k, v, dout, lse and delta [B,H,S] float32.
+// K6. out [B,Sq,H,D]; lse [B,H,Sq] float32, or null when not wanted.
+extern "C" int fa_forward_stream(const void* q, const void* k, const void* v,
+                                 void* out, float* lse, FA_MASK_ARGS) {
+  const Params p{q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse,
+                 B, Sq, Sk, H, HKV, scale, FA_MASK};
+  return dispatch(p, head_dim, dtype, kStream,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// K2. dq [B,Sq,H,D] from q, k, v, dout, lse and delta [B,H,Sq] float32.
 extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
-                              const float* delta, void* dq, int B, int S,
-                              int H, int HKV, int head_dim, float scale,
-                              int causal, int dtype, void* stream) {
-  Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, S, H, HKV,
-         scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, head_dim, dtype, kDq);
+                              const float* delta, void* dq, FA_MASK_ARGS) {
+  const Params p{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+                 B, Sq, Sk, H, HKV, scale, FA_MASK};
+  return dispatch(p, head_dim, dtype, kDq, static_cast<cudaStream_t>(stream));
 }
 
-// K3. dk, dv [B,S,HKV,D], each the sum over the G query heads of its group.
+// K3. dk, dv [B,Sk,HKV,D], each the sum over the G query heads of its group.
 extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
-                               const float* delta, void* dk, void* dv, int B,
-                               int S, int H, int HKV, int head_dim,
-                               float scale, int causal, int dtype,
-                               void* stream) {
-  Args a{q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, H, HKV, scale,
-         causal, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, head_dim, dtype, kDkv);
+                               const float* delta, void* dk, void* dv,
+                               FA_MASK_ARGS) {
+  const Params p{q, k, v, dout, lse, delta, dk, dv, nullptr,
+                 B, Sq, Sk, H, HKV, scale, FA_MASK};
+  return dispatch(p, head_dim, dtype, kDkv,
+                  static_cast<cudaStream_t>(stream));
 }

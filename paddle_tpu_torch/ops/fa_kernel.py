@@ -1,30 +1,38 @@
 """Flash-attention forward and backward: the hand-written kernels K1-K3
-and their plain PyTorch versions (counterpart:
+and K6 and their plain PyTorch versions (counterpart:
 ``paddle_tpu/ops/pallas/_fa_kernel.py``).
 
-Layouts are the JAX package's: ``q, o, do [B, S, H, D]``, ``k, v [B, S,
-HKV, D]`` (GQA: query head h reads kv head ``h // (H // HKV)``). The log-
-sum-exp comes out as ``[B, H, S]`` float32 (the TPU kernel's ``[B*H, S,
-128]`` lane layout is a TPU artefact: ``lse_l[:, :, 0]`` is the same
-numbers). Two entries dispatch on where the tensors lie:
+Layouts are the JAX package's: ``q, o, do [B, Sq, H, D]``, ``k, v [B,
+Sk, HKV, D]`` (GQA: query head h reads kv head ``h // (H // HKV)``). The
+log-sum-exp comes out as ``[B, H, Sq]`` float32 (the TPU kernel's
+``[B*H, S, 128]`` lane layout is a TPU artefact: ``lse_l[:, :, 0]`` is
+the same numbers). Masking is the TPU kernels' ``_masked_scores``
+(:func:`masked_scores` here), in this order: causal with the diagonal
+at ``Sk - Sq``; FlashMask bands (``fm_start``/``fm_end`` and optionally
+``fm_start2``/``fm_end2``, each ``[B|1, H|1, Sk]`` int32: query rows
+``[start_j, end_j)`` of key column j are masked); an additive float32
+``mask [B|1, H|1, Sq, Sk]``. A row with no live key gives out 0, lse
+-inf and zero gradients. Two entries dispatch on where the tensors lie:
 
-- :func:`fa_forward` → :func:`fa_forward_plain` on CPU tensors,
-  :func:`fa_forward_cuda` (K1) on any other;
+- :func:`fa_forward` → :func:`fa_forward_plain` on CPU tensors; on any
+  other, :func:`fa_forward_masked_cuda` (K6, the streamed masked
+  forward) when there is a mask, a band or ``Sq != Sk``, as the JAX
+  package routes them (``_fa_kernel.py:446``), else
+  :func:`fa_forward_cuda` (K1);
 - :func:`fa_backward` → :func:`fa_backward_plain` on CPU tensors,
-  :func:`fa_backward_cuda` (K2 for dq, then K3 for dk/dv) on any other.
+  :func:`fa_backward_cuda` (K2 for dq, then K3 for dk/dv, in their
+  masked arms when there is a mask or a band) on any other.
 
 A tensor off the CPU launches its kernel or raises (a CUDA wrapper
 refuses a tensor that is not on a CUDA device); nothing falls back. As in
 the JAX package, ``delta = rowsum(dO * O)`` (minus ``dlse`` when the caller
-consumes the lse) is computed outside the kernels.
+consumes the lse) is computed outside the kernels. Segment ids and
+in-kernel dropout are not ported; :mod:`.flash_attention` refuses them.
 
-This slice covers the arms the LLaMA training step runs: causal or not,
-GQA, the lse output, ``Sq == Sk``. The additive mask, segment ids,
-FlashMask bands and in-kernel dropout (and the streamed forward K6 that
-carries them) are not ported; :mod:`.flash_attention` refuses them.
-
-``stats`` counts kernel launches (one per kernel per call) and plain-
-version calls, so a run can show which path it went through.
+``stats`` counts kernel launches (one per kernel per call: K1
+``fwd_launches``, K6 ``stream_fwd_launches``, K2 ``dq_launches``, K3
+``dkv_launches``) and plain-version calls, so a run can show which path
+it went through.
 """
 from __future__ import annotations
 
@@ -36,12 +44,13 @@ import torch
 from ..cuda_build import KernelLibrary
 
 __all__ = ["fa_forward", "fa_backward", "fa_forward_cuda",
-           "fa_backward_cuda", "fa_dq_cuda", "fa_dkv_cuda",
-           "fa_forward_plain", "fa_backward_plain", "stats", "reset_stats",
+           "fa_forward_masked_cuda", "fa_backward_cuda", "fa_dq_cuda",
+           "fa_dkv_cuda", "fa_forward_plain", "fa_backward_plain",
+           "masked_scores", "check_fm_pairs", "stats", "reset_stats",
            "KERNEL_LIBRARY"]
 
-stats = {"fwd_launches": 0, "dq_launches": 0, "dkv_launches": 0,
-         "plain_fwd_calls": 0, "plain_bwd_calls": 0}
+stats = {"fwd_launches": 0, "stream_fwd_launches": 0, "dq_launches": 0,
+         "dkv_launches": 0, "plain_fwd_calls": 0, "plain_bwd_calls": 0}
 
 
 def reset_stats():
@@ -53,23 +62,51 @@ def _scale(scale, d):
     return float(scale) if scale is not None else 1.0 / (d ** 0.5)
 
 
-def fa_forward(q, k, v, causal=False, scale=None, return_lse=False):
-    """``out [B,S,H,D]`` in q's dtype, and with ``return_lse`` the row
-    log-sum-exp ``[B,H,S]`` float32."""
-    fn = fa_forward_plain if q.device.type == "cpu" else fa_forward_cuda
-    return fn(q, k, v, causal=causal, scale=scale, return_lse=return_lse)
+def check_fm_pairs(fm_start, fm_end, fm_start2, fm_end2):
+    """The bands come in pairs, and band 2 only with band 1 (the JAX
+    package's ``_check_fm_pairs``): an unpaired bound would be read as
+    another band's."""
+    if (fm_start is None) != (fm_end is None):
+        raise ValueError("FlashMask bounds must be paired: fm_start and "
+                         "fm_end must both be given or both be None")
+    if (fm_start2 is None) != (fm_end2 is None):
+        raise ValueError("FlashMask bounds must be paired: fm_start2 and "
+                         "fm_end2 must both be given or both be None")
+    if fm_start2 is not None and fm_start is None:
+        raise ValueError("FlashMask band 2 (fm_start2/fm_end2) requires "
+                         "band 1 (fm_start/fm_end)")
+    return [a for a in (fm_start, fm_end, fm_start2, fm_end2)
+            if a is not None]
 
 
-def fa_backward(q, k, v, o, lse, do, causal=False, scale=None, dlse=None):
+def fa_forward(q, k, v, causal=False, scale=None, return_lse=False,
+               mask=None, fm_start=None, fm_end=None, fm_start2=None,
+               fm_end2=None):
+    """``out [B,Sq,H,D]`` in q's dtype, and with ``return_lse`` the row
+    log-sum-exp ``[B,H,Sq]`` float32."""
+    fm = check_fm_pairs(fm_start, fm_end, fm_start2, fm_end2)
+    kw = dict(causal=causal, scale=scale, return_lse=return_lse)
+    if q.device.type == "cpu":
+        return fa_forward_plain(q, k, v, mask=mask, fm=fm, **kw)
+    if mask is not None or fm or q.shape[1] != k.shape[1]:
+        return fa_forward_masked_cuda(q, k, v, mask=mask, fm=fm, **kw)
+    return fa_forward_cuda(q, k, v, **kw)
+
+
+def fa_backward(q, k, v, o, lse, do, causal=False, scale=None, dlse=None,
+                mask=None, fm_start=None, fm_end=None, fm_start2=None,
+                fm_end2=None):
     """``(dq, dk, dv)`` in the inputs' dtypes; ``dk, dv`` at the kv head
-    count (the GQA group sum is taken). ``dlse [B,H,S]``: the cotangent
+    count (the GQA group sum is taken). ``dlse [B,H,Sq]``: the cotangent
     of the lse output, folded in as ``delta - dlse``."""
+    fm = check_fm_pairs(fm_start, fm_end, fm_start2, fm_end2)
     fn = fa_backward_plain if q.device.type == "cpu" else fa_backward_cuda
-    return fn(q, k, v, o, lse, do, causal=causal, scale=scale, dlse=dlse)
+    return fn(q, k, v, o, lse, do, causal=causal, scale=scale, dlse=dlse,
+              mask=mask, fm=fm)
 
 
 def _delta(o, do, dlse):
-    """``rowsum(dO * O) - dlse`` as ``[B,H,S]`` float32, contiguous."""
+    """``rowsum(dO * O) - dlse`` as ``[B,H,Sq]`` float32, contiguous."""
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2)
     if dlse is not None:
         delta = delta - dlse.float()
@@ -82,26 +119,46 @@ def _repeat_kv(x, g):
     return x if g == 1 else x.repeat_interleave(g, dim=2)
 
 
-def _scores(q, k, causal, sc):
-    """float32 ``[B,H,Sq,Sk]`` scores of q against (head-repeated) k, the
-    causal diagonal at ``Sk - Sq`` as in the JAX reference."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sc
+def masked_scores(s, causal=False, mask=None, fm=()):
+    """The TPU kernels' ``_masked_scores`` on whole float32 score tensors
+    ``s [B,H,Sq,Sk]``: causal with the diagonal at ``Sk - Sq``; each
+    ``(start, end)`` pair of ``fm`` (``[B|1,H|1,Sk]`` int) masks the query
+    rows ``[start_j, end_j)`` of key column j; then the additive ``mask``
+    ``[B|1,H|1,Sq,Sk]`` is added."""
+    sq, sk = s.shape[-2], s.shape[-1]
     if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
         keep = torch.ones(sq, sk, dtype=torch.bool,
                           device=s.device).tril(sk - sq)
         s = s.masked_fill(~keep, float("-inf"))
+    if fm:
+        rows = torch.arange(sq, device=s.device)[:, None]
+        dead = torch.zeros((), dtype=torch.bool, device=s.device)
+        for start, end in zip(fm[0::2], fm[1::2]):
+            dead = dead | ((rows >= start[:, :, None, :].long())
+                           & (rows < end[:, :, None, :].long()))
+        s = s.masked_fill(dead, float("-inf"))
+    if mask is not None:
+        s = s + mask.float()
     return s
 
 
+def _scores(q, k, sc, causal=False, mask=None, fm=()):
+    """float32 masked ``[B,H,Sq,Sk]`` scores of q against (head-repeated)
+    k."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sc
+    return masked_scores(s, causal, mask, fm)
+
+
 def fa_forward_plain(q, k, v, *, causal=False, scale=None,
-                     return_lse=False):
-    """Plain PyTorch version of K1: the JAX oracle ``_attention_ref_lse``
-    (``ops/pallas/flash_attention.py:401``) — float32 scores, the
-    probabilities cast to q's dtype before the product with V."""
+                     return_lse=False, mask=None, fm=()):
+    """Plain PyTorch version of K1 and K6: the JAX oracle
+    ``_attention_ref_lse`` (``ops/pallas/flash_attention.py:401``) with the
+    kernels' masking — float32 scores, the probabilities cast to q's
+    dtype before the product with V; a dead row gives 0 and lse -inf."""
     stats["plain_fwd_calls"] += 1
     g = q.shape[2] // k.shape[2]
-    s = _scores(q, _repeat_kv(k, g), causal, _scale(scale, q.shape[-1]))
+    s = _scores(q, _repeat_kv(k, g), _scale(scale, q.shape[-1]), causal,
+                mask, fm)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - torch.where(torch.isfinite(lse), lse,
                                   torch.zeros_like(lse))[..., None])
@@ -112,10 +169,11 @@ def fa_forward_plain(q, k, v, *, causal=False, scale=None,
 
 
 def fa_backward_plain(q, k, v, o, lse, do, *, causal=False, scale=None,
-                      dlse=None):
+                      dlse=None, mask=None, fm=()):
     """Plain PyTorch version of K2 + K3: the oracle's vjp in closed form
-    from the saved lse (exact in float32), ``p = exp(s - lse)``, ``ds = p
-    * (dp - delta)``; dk/dv summed over each kv head's query heads."""
+    from the saved lse (exact in float32), ``p = exp(s - lse)`` where s is
+    finite and 0 elsewhere, ``ds = p * (dp - delta)``; dk/dv summed over
+    each kv head's query heads."""
     stats["plain_bwd_calls"] += 1
     b, sq, h, d = q.shape
     hkv = k.shape[2]
@@ -123,7 +181,7 @@ def fa_backward_plain(q, k, v, o, lse, do, *, causal=False, scale=None,
     sc = _scale(scale, d)
     kf, vf = _repeat_kv(k, g).float(), _repeat_kv(v, g).float()
     qf, dof = q.float(), do.float()
-    s = _scores(qf, kf, causal, sc)
+    s = _scores(qf, kf, sc, causal, mask, fm)
     p = torch.where(torch.isfinite(s), torch.exp(s - lse.float()[..., None]),
                     torch.zeros_like(s))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -142,12 +200,17 @@ def fa_backward_plain(q, k, v, o, lse, do, *, causal=False, scale=None,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
-# B, S, H, HKV, D; scale; causal; dtype; stream
-_TAIL = [_I] * 5 + [_F, _I, _I, _P]
+# B, Sq, Sk, H, HKV, D; scale; causal; the additive mask and its four
+# element strides; the bands, their count and their band / batch / head
+# strides; dtype; stream
+_TAIL = ([_I] * 6 + [_F, _I] + [_P] + [_L] * 4 + [_P, _I] + [_L] * 3
+         + [_I, _P])
 KERNEL_LIBRARY = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     {"fa_forward": ([_P] * 5 + _TAIL, _I),
+     "fa_forward_stream": ([_P] * 5 + _TAIL, _I),
      "fa_backward_dq": ([_P] * 7 + _TAIL, _I),
      "fa_backward_dkv": ([_P] * 8 + _TAIL, _I)})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -160,19 +223,15 @@ def _require(cond, msg):
 
 
 def _check(q, k, v, *rest):
-    """Device, dtype, shape and contiguity of q, k, v and the [B,S,H,D]
-    tensors in ``rest``; returns ``(B, S, H, HKV, D)``."""
+    """Device, dtype, shape and contiguity of q, k, v and the [B,Sq,H,D]
+    tensors in ``rest``; returns ``(B, Sq, Sk, H, HKV, D)``."""
     dev = q.device
     _require(dev.type == "cuda", f"q lies on {dev}; the kernel needs CUDA")
     _require(q.dtype in _DTYPES, f"dtype {q.dtype} not in {tuple(_DTYPES)}")
     _require(q.dim() == 4 and k.dim() == 4, "q and k must be [B,S,H,D]")
-    b, s, h, d = q.shape
-    hkv = k.shape[2]
-    if k.shape[1] != s:
-        raise NotImplementedError(
-            f"Sq={s} != Sk={k.shape[1]}: cross-length attention runs on "
-            "the streamed forward K6 (_fa_fwd_stream_kernel), not ported")
-    _require(tuple(k.shape) == (b, s, hkv, d) and v.shape == k.shape,
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    _require(tuple(k.shape) == (b, sk, hkv, d) and v.shape == k.shape,
              f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
              f"{tuple(q.shape)}")
     _require(hkv > 0 and h % hkv == 0, f"{h} heads over {hkv} kv heads")
@@ -185,7 +244,49 @@ def _check(q, k, v, *rest):
         _require(x.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
     for name, x in rest:
         _require(x.shape == q.shape, f"{name} shape {tuple(x.shape)}")
-    return b, s, h, hkv, d
+    return b, sq, sk, h, hkv, d
+
+
+def _bcast_dims(x, b, h):
+    return x.shape[0] in (1, b) and x.shape[1] in (1, h)
+
+
+def _mask_args(mask, fm, b, sq, sk, h, dev):
+    """The masking arguments of a launch: ``(keep, args)``. ``keep``
+    holds the tensors the pointers point into until the launch is
+    queued; ``args`` are the additive mask's pointer and its element
+    strides (0 over a broadcast dim), then the bands' pointer, count and
+    band / batch / head strides (0 over a broadcast dim). The bands are
+    stacked into one ``[n, MB, MH, Sk]`` int32 tensor."""
+    keep = []
+    margs = [None, 0, 0, 0, 0]
+    if mask is not None:
+        _require(mask.device == dev and mask.dtype == torch.float32
+                 and mask.dim() == 4 and _bcast_dims(mask, b, h)
+                 and tuple(mask.shape[2:]) == (sq, sk),
+                 f"mask must be float32 [B|1, H|1, Sq, Sk] = [{b}|1, "
+                 f"{h}|1, {sq}, {sk}] on {dev}, got {mask.dtype} "
+                 f"{tuple(mask.shape)}")
+        strides = [0 if n == 1 else st
+                   for n, st in zip(mask.shape, mask.stride())]
+        keep.append(mask)
+        margs = [mask.data_ptr(), *strides]
+    fargs = [None, 0, 0, 0, 0]
+    if fm:
+        for x in fm:
+            _require(x.device == dev and x.dim() == 3 and x.shape[2] == sk
+                     and _bcast_dims(x, b, h) and not x.is_floating_point(),
+                     f"FlashMask bounds must be integer [B|1, H|1, Sk] = "
+                     f"[{b}|1, {h}|1, {sk}] on {dev}, got {x.dtype} "
+                     f"{tuple(x.shape)}")
+        mb = max(x.shape[0] for x in fm)
+        mh = max(x.shape[1] for x in fm)
+        bands = torch.stack([x.expand(mb, mh, sk) for x in fm]).to(
+            torch.int32).contiguous()
+        keep.append(bands)
+        fargs = [bands.data_ptr(), len(fm), mb * mh * sk,
+                 mh * sk if mb > 1 else 0, sk if mh > 1 else 0]
+    return keep, margs + fargs
 
 
 def _raise_on(rc, which):
@@ -193,57 +294,88 @@ def _raise_on(rc, which):
         raise RuntimeError(f"{which} kernel launch failed: cudaError {rc}")
 
 
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_forward(entry, q, k, v, causal, scale, return_lse, mask, fm):
+    b, sq, sk, h, hkv, d = _check(q, k, v)
+    keep, margs = _mask_args(mask, fm, b, sq, sk, h, q.device)
+    out = torch.empty_like(q)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    with torch.cuda.device(q.device):
+        rc = getattr(KERNEL_LIBRARY.lib(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, b, sq, sk, h, hkv, d,
+            _scale(scale, d), int(bool(causal)), *margs, _DTYPES[q.dtype],
+            _stream(q))
+    return rc, ((out, lse) if return_lse else out)
+
+
 def fa_forward_cuda(q, k, v, *, causal=False, scale=None, return_lse=False):
     """Launch K1 on ``torch.cuda.current_stream()``: q [B,S,H,D], k/v
     [B,S,HKV,D], bf16 or float32, contiguous, on one CUDA device; D in
     (64, 128, 256). Raises on anything else and if the launch fails."""
-    b, s, h, hkv, d = _check(q, k, v)
-    out = torch.empty_like(q)
-    lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    lib = KERNEL_LIBRARY.lib()
-    with torch.cuda.device(q.device):
-        rc = lib.fa_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None, b, s, h, hkv, d,
-            _scale(scale, d), int(bool(causal)), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    _require(k.shape[1] == q.shape[1], f"Sq={q.shape[1]} != Sk="
+             f"{k.shape[1]}: cross-length attention runs on K6")
+    rc, res = _launch_forward("fa_forward", q, k, v, causal, scale,
+                              return_lse, None, ())
     _raise_on(rc, "fa_forward (K1)")
     stats["fwd_launches"] += 1
-    return (out, lse) if return_lse else out
+    return res
+
+
+def fa_forward_masked_cuda(q, k, v, *, causal=False, scale=None,
+                           return_lse=False, mask=None, fm=()):
+    """Launch K6, the streamed masked forward: as K1, and Sq may differ
+    from Sk (the causal diagonal at ``Sk - Sq``), with the additive
+    ``mask`` (float32 ``[B|1,H|1,Sq,Sk]``, any strides) and 1 or 2
+    FlashMask bands ``fm = (start, end[, start2, end2])`` (integer
+    ``[B|1,H|1,Sk]``); k tiles that causality or the first band kill
+    for the whole q tile are skipped."""
+    rc, res = _launch_forward("fa_forward_stream", q, k, v, causal, scale,
+                              return_lse, mask, fm)
+    _raise_on(rc, "fa_forward_stream (K6)")
+    stats["stream_fwd_launches"] += 1
+    return res
 
 
 def fa_backward_cuda(q, k, v, o, lse, do, *, causal=False, scale=None,
-                     dlse=None):
+                     dlse=None, mask=None, fm=()):
     """Launch K2 (dq) and K3 (dk, dv) on the current stream. ``o``,
-    ``do`` like q; ``lse`` (and ``dlse``) [B,H,S] float32. Raises on
+    ``do`` like q; ``lse`` (and ``dlse``) [B,H,Sq] float32. Raises on
     anything the kernels do not take and if a launch fails."""
     _check(q, k, v, ("o", o), ("do", do))
     delta = _delta(o, do, dlse)
-    dq = fa_dq_cuda(q, k, v, do, lse, delta, causal=causal, scale=scale)
-    dk, dv = fa_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
-                         scale=scale)
+    kw = dict(causal=causal, scale=scale, mask=mask, fm=fm)
+    dq = fa_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa_dkv_cuda(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
 
 
-def _backward_args(q, k, v, do, lse, delta, causal, scale):
-    b, s, h, hkv, d = _check(q, k, v, ("do", do))
+def _backward_args(q, k, v, do, lse, delta, causal, scale, mask, fm):
+    b, sq, sk, h, hkv, d = _check(q, k, v, ("do", do))
     for name, x in (("lse", lse), ("delta", delta)):
         _require(x.device == q.device and x.dtype == torch.float32
-                 and tuple(x.shape) == (b, h, s) and x.is_contiguous(),
-                 f"{name} must be contiguous float32 [B,H,S] on {q.device}")
+                 and tuple(x.shape) == (b, h, sq) and x.is_contiguous(),
+                 f"{name} must be contiguous float32 [B,H,Sq] on "
+                 f"{q.device}")
+    keep, margs = _mask_args(mask, fm, b, sq, sk, h, q.device)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    common = (b, s, h, hkv, d, _scale(scale, d), int(bool(causal)),
-              _DTYPES[q.dtype], torch.cuda.current_stream(q.device)
-              .cuda_stream)
-    return ins, common
+    common = (b, sq, sk, h, hkv, d, _scale(scale, d), int(bool(causal)),
+              *margs, _DTYPES[q.dtype], _stream(q))
+    return keep, ins, common
 
 
-def fa_dq_cuda(q, k, v, do, lse, delta, *, causal=False, scale=None):
+def fa_dq_cuda(q, k, v, do, lse, delta, *, causal=False, scale=None,
+               mask=None, fm=()):
     """K2 alone: dq from the saved lse and ``delta = rowsum(dO * O)
-    [- dlse]`` ([B,H,S] float32)."""
-    ins, common = _backward_args(q, k, v, do, lse, delta, causal, scale)
+    [- dlse]`` ([B,H,Sq] float32); its masked arm when there is a mask
+    or a band."""
+    keep, ins, common = _backward_args(q, k, v, do, lse, delta, causal,
+                                       scale, mask, fm)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = KERNEL_LIBRARY.lib().fa_backward_dq(*ins, dq.data_ptr(),
@@ -253,9 +385,11 @@ def fa_dq_cuda(q, k, v, do, lse, delta, *, causal=False, scale=None):
     return dq
 
 
-def fa_dkv_cuda(q, k, v, do, lse, delta, *, causal=False, scale=None):
+def fa_dkv_cuda(q, k, v, do, lse, delta, *, causal=False, scale=None,
+                mask=None, fm=()):
     """K3 alone: ``(dk, dv)`` at the kv head count."""
-    ins, common = _backward_args(q, k, v, do, lse, delta, causal, scale)
+    keep, ins, common = _backward_args(q, k, v, do, lse, delta, causal,
+                                       scale, mask, fm)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         rc = KERNEL_LIBRARY.lib().fa_backward_dkv(

@@ -20,7 +20,8 @@ from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      LlamaPretrainingCriterion)
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
-from paddle_tpu_torch.ops.flash_attention import (flash_attention_bshd,
+from paddle_tpu_torch.ops.flash_attention import (_attention_ref,
+                                                  flash_attention_bshd,
                                                   flash_core_lse)
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import PagedKVCache, ServingEngine
@@ -140,7 +141,7 @@ def test_kernel_wrappers_refuse_tensors_off_a_card():
 
 
 @pytest.mark.parametrize("kwargs,missing", [
-    (dict(mask=torch.ones(8, 8, dtype=torch.bool)), "attention mask"),
+    (dict(mask=torch.ones(1, 1, 1, 8, dtype=torch.bool)), "attention mask"),
     (dict(q_seg=torch.zeros(1, 8, dtype=torch.int32),
           kv_seg=torch.zeros(1, 8, dtype=torch.int32)), "segment ids"),
     (dict(dropout_p=0.1), "dropout"),
@@ -152,13 +153,23 @@ def test_flash_attention_refuses_the_unported_arms(kwargs, missing):
 
 
 def test_cross_length_and_sdpa_options_are_refused_not_dropped():
+    """Cross-length attention and sdpa's mask run (K6's arms) with their
+    semantics, the causal diagonal at Sk - Sq and the mask applied; what
+    is not ported (the bool key-padding mask, dropout) raises."""
     q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 12, 4, 16)
-    with pytest.raises(NotImplementedError, match="K6"):
-        flash_attention_bshd(q, k, k)
-    with pytest.raises(NotImplementedError, match="K6"):
-        flash_core_lse(q, k, k, False, None)
-    with pytest.raises(NotImplementedError, match="mask"):
-        scaled_dot_product_attention(q, q, q, attn_mask=torch.zeros(8, 8))
+    got = flash_attention_bshd(q, k, k, causal=True)
+    torch.testing.assert_close(got, _attention_ref(q, k, k, causal=True))
+    out, lse = flash_core_lse(q, k, k, True, None)
+    torch.testing.assert_close(out, got)
+    assert torch.isfinite(lse).all() and lse.shape == (1, 4, 8)
+    keep = torch.rand(8, 8, generator=torch.Generator().manual_seed(0)) > .3
+    keep.fill_diagonal_(True)
+    torch.testing.assert_close(
+        scaled_dot_product_attention(q, q, q, attn_mask=keep),
+        _attention_ref(q, q, q, mask=keep))
+    with pytest.raises(NotImplementedError, match="segment"):
+        scaled_dot_product_attention(
+            q, q, q, attn_mask=torch.ones(1, 1, 1, 8, dtype=torch.bool))
     with pytest.raises(NotImplementedError, match="dropout"):
         scaled_dot_product_attention(q, q, q, dropout_p=0.1)
     out = scaled_dot_product_attention(q, q, q, dropout_p=0.1,

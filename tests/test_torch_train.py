@@ -192,3 +192,93 @@ def test_fused_ce_keeps_float32_logits_in_bf16():
 def _marked(h):
     h._fused_hidden = True
     return h
+
+
+# -- Mistral: the sliding window, and packed documents -----------------------
+
+MISTRAL = dict(sliding_window=8, num_key_value_heads=2)
+MISTRAL_SEQ = 32
+
+
+def _mistral_pair():
+    """``LlamaConfig.tiny(sliding_window=8, num_key_value_heads=2)`` in
+    both packages, the JAX model's weights in the port's."""
+    P.seed(0)
+    jm = JaxLlama(JaxConfig.tiny(**MISTRAL))
+    cfg = LlamaConfig.tiny(**MISTRAL)
+    tm = LlamaForCausalLM(cfg, device="cpu")
+    sd = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    tm.load_state_dict(state_dict_from_paddle_tpu(sd, cfg))
+    return jm, tm, cfg
+
+
+def test_mistral_window_train_batch_loop_matches_jax_loss_for_loss():
+    """The window (8 of 32 positions) runs through flashmask_attention
+    on both sides: K6's plain version and the banded K2/K3 here."""
+    jm, tm, cfg = _mistral_pair()
+    xs = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (STEPS, BATCH, MISTRAL_SEQ)).astype(np.int32)
+    jmodel = P.Model(jm)
+    jmodel.prepare(P.optimizer.AdamW(LR, parameters=jm.parameters()),
+                   JaxCriterion(JaxConfig.tiny(**MISTRAL)))
+    want = np.asarray(jmodel.train_batch_loop(
+        [P.to_tensor(xs)], [P.to_tensor(xs)])._data)
+    fa_kernel.reset_stats()
+    got = _port_model(tm, cfg).train_batch_loop([xs], [xs])
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    layers = cfg.num_hidden_layers
+    assert fa_kernel.stats["plain_fwd_calls"] == STEPS * layers
+    assert fa_kernel.stats["plain_bwd_calls"] == STEPS * layers
+
+
+def _packed_batch(seed, vocab):
+    """Two rows of packed documents: ids, position ids that restart at
+    each document, and the C=1 ``startend_row_indices [B, 1, S, 1]`` whose
+    value at key j is the end of j's document."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (BATCH, MISTRAL_SEQ)).astype(np.int32)
+    pos = np.zeros((BATCH, MISTRAL_SEQ), np.int32)
+    idx = np.zeros((BATCH, 1, MISTRAL_SEQ, 1), np.int32)
+    for b, lens in enumerate(((5, 14, 13), (20, 12))):
+        lo = 0
+        for n in lens:
+            pos[b, lo:lo + n] = np.arange(n)
+            idx[b, 0, lo:lo + n, 0] = lo + n
+            lo += n
+    return ids, pos, idx
+
+
+def test_packed_documents_step_by_hand_matches_jax():
+    """``attn_mask_startend_row_indices`` with the window folded in
+    (column-wise min), two steps by hand in both packages: forward,
+    criterion, backward, the optimizer's step, clear_grad. The loss and
+    the first layer's q_proj / k_proj gradients agree."""
+    jm, tm, cfg = _mistral_pair()
+    jcrit = JaxCriterion(JaxConfig.tiny(**MISTRAL))
+    jopt = P.optimizer.AdamW(LR, parameters=jm.parameters())
+    tcrit = LlamaPretrainingCriterion(cfg)
+    topt = AdamW(LR, parameters=tm.parameters())
+    jattn, tattn = jm.llama.layers[0].self_attn, tm.llama.layers[0].self_attn
+    tm.train()
+    for step in range(2):
+        ids, pos, idx = _packed_batch(step, cfg.vocab_size)
+        jloss = jcrit(jm(P.to_tensor(ids), position_ids=P.to_tensor(pos),
+                         attn_mask_startend_row_indices=P.to_tensor(idx)),
+                      P.to_tensor(ids))
+        jloss.backward()
+        tids = torch.from_numpy(ids).long()
+        tloss = tcrit(tm(tids, position_ids=torch.from_numpy(pos).long(),
+                         attn_mask_startend_row_indices=torch.from_numpy(
+                             idx)), tids)
+        tloss.backward()
+        np.testing.assert_allclose(tloss.item(), float(jloss._data),
+                                   atol=ATOL, rtol=0)
+        for name in ("q_proj", "k_proj"):
+            jg = np.asarray(getattr(jattn, name).weight.grad._data)
+            tg = getattr(tattn, name).weight.grad.numpy()
+            np.testing.assert_allclose(tg, jg.T, atol=1e-4, rtol=0,
+                                       err_msg=f"step {step} {name}")
+        jopt.step()
+        jopt.clear_grad()
+        topt.step()
+        topt.clear_grad()
