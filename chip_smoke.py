@@ -25,7 +25,20 @@ Phases, each of which passes or ends the script with a non-zero code:
    causal Sq 1024 against Sk 3072, float32, D 64 and D 256; dead rows
    exact; five planted faults rejected; timed at Mistral's training
    shape (B 2, S 8192, window 4096).
-4. ``train``: ``Model.train_batch_loop`` over ``LlamaForCausalLM(
+4. ``dropseg``: the segment-id and counter-hash dropout arms of K1-K3
+   and K6's segment arm the same way: the keep pattern read straight
+   off K1's out, K2's dq and K3's dv (per query head of a GQA group) and
+   compared with ``keep_scale`` bit for bit, bf16 and float32, segments
+   aligned to the tiles and straddling them; (a) GPT's shape (B 8, S
+   2048, H 16, D 128, causal, p 0.1, right-padded rows) in bf16 and
+   float32, (b) GQA 32/8 with packed segments whose ids run out of
+   order, (c) rows with no live key (exactly 0), (d) the cross-length
+   segments of ``flash_attn_unpadded`` on K6 (D 128), and K1's padding
+   arm with dropout at D 256; five planted faults
+   rejected; ``flash_attn_unpadded`` driven with exact counts; timed at
+   GPT's shape beside SDPA's flash backend with dropout and its
+   memory-efficient backend with the padding mask.
+5. ``train``: ``Model.train_batch_loop`` over ``LlamaForCausalLM(
    LlamaConfig.llama2_7b(num_hidden_layers=8, dtype="bfloat16",
    fuse_linear_cross_entropy=True))`` at full width, batch 4 x 2048
    tokens, ``AdamW(1e-4, multi_precision=True)``, random weights and
@@ -36,19 +49,30 @@ Phases, each of which passes or ends the script with a non-zero code:
    be finite, start where random logits of the init's scale put them and
    fall. Then the same 2-layer run through the kernels and through the
    plain versions (patched in here) must agree loss for loss.
-5. ``mistral``: the same over ``LlamaConfig.mistral_7b(
+6. ``mistral``: the same over ``LlamaConfig.mistral_7b(
    num_hidden_layers=8, ...)`` (GQA 32:8, FFN 14336, the 4096-token
    sliding window), batch 2 x 8192: K6, K2 and K3 once per layer and
    step, K1 never.
-6. ``packed``: that model three steps by hand on packed documents
+7. ``packed``: that model three steps by hand on packed documents
    (lengths 128-4096 from a seed filling each 8192-token row, C=1
    ``attn_mask_startend_row_indices``, position ids restarting at each
    document); then at 2 layers one packed row of three documents against
    each document run alone, summed token NLL.
-7. ``mistral_path``: 2 Mistral layers at B 1 x S 4096, the window cut to
+8. ``mistral_path``: 2 Mistral layers at B 1 x S 4096, the window cut to
    1024, through the kernels and through the plain versions: the losses
    must agree.
-8. ``serve``: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
+9. ``gpt``: ``Model.train_batch_loop`` over ``GPTForCausalLM(GPTConfig.
+   gpt3_1_3b(dtype="bfloat16"))`` at full width and depth (24 layers,
+   1.419 B parameters), 10 steps of batch 8 x 2048 with rows
+   right-padded to 1024-2048 tokens (the bool key mask, labels -100 on
+   the padding), hidden and attention dropout 0.1, ``AdamW(1e-4,
+   multi_precision=True)``: K1 = K2 = K3 = 24 x steps, every launch in
+   the segment and dropout arms, K6 never, K4 once per step, no plain
+   call; the first loss within 0.5 of ln V + s2/2 and falling.
+10. ``gpt_path``: 2 GPT layers at batch 8 x 2048 through the kernels and
+   through the plain versions, dropout on and the same seeds: the
+   losses must agree.
+11. ``serve``: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
    llama2_7b(dtype="bfloat16", use_flash_attention=False))`` at full
    width and depth, random weights from a seed, answers 8 requests.
    Every request must finish with its token count; K5 must have
@@ -346,11 +370,13 @@ def fa_work(b, s, h, hkv, d, causal, itemsize):
 FA_NAMES = ("out", "lse", "dq", "dk", "dv")
 
 
-def fa_term_scales(q, k, v, do, lse, delta, causal, mask=None, fm=()):
+def fa_term_scales(q, k, v, do, lse, delta, causal, mask=None, fm=(),
+                   q_seg=None, kv_seg=None, keep=None):
     """sigma of each element of out, dq, dk and dv: the root sum of
     squares of the products the kernels sum into it (p v, ds k, ds q,
-    p dO), in float32 from the plain version's lse and delta, under the
-    same masking."""
+    p dO; under dropout p keep v, ds = p (dp keep - delta), p keep dO), in
+    float32 from the plain version's lse and delta, under the same
+    masking."""
     import torch
     from paddle_tpu_torch.ops import fa_kernel as FK
 
@@ -360,11 +386,17 @@ def fa_term_scales(q, k, v, do, lse, delta, causal, mask=None, fm=()):
     sc = d ** -0.5
     kf, vf = (FK._repeat_kv(x, g).float() for x in (k, v))
     qf, dof = q.float(), do.float()
-    sco = FK._scores(qf, kf, sc, causal, mask, fm)
+    sco = FK._scores(qf, kf, sc, causal, mask, fm, q_seg, kv_seg)
     p = torch.where(torch.isfinite(sco), torch.exp(sco - lse[..., None]),
                     torch.zeros_like(sco))
     del sco
-    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    if keep is not None:
+        dp.mul_(keep)
+    ds = p * (dp.sub_(delta[..., None]))
+    del dp
+    if keep is not None:
+        p.mul_(keep)
     p2, ds2 = p.square_(), ds.square_()
 
     def kv_sum(x):
@@ -761,9 +793,11 @@ def masked_check(name, q, k, v, do, kw, got, want):
                        and (got["dq"].transpose(1, 2)[dead] == 0).all()):
         raise AssertionError(f"{name}: a dead row is not exactly 0 "
                              "(out, dq) and -inf (lse)")
-    sigma = (fa_term_scales(q, k, v, do, want["lse"],
-                            FK._delta(want["out"], do, None), kw["causal"],
-                            kw["mask"], kw["fm"])
+    sigma = (fa_term_scales(
+        q, k, v, do, want["lse"], FK._delta(want["out"], do, None),
+        kw["causal"], kw.get("mask"), kw.get("fm", ()), kw.get("q_seg"),
+        kw.get("kv_seg"), FK._keep(q, k, kw.get("dropout_p", 0.0),
+                                   kw.get("seed")))
              if q.dtype == torch.bfloat16 else None)
     cmp = fa_compare(got, want, sigma)
     readings = {n: dict(ratio=r, max_abs_err=e) for n, (r, e) in cmp.items()}
@@ -965,6 +999,471 @@ def library_band_ms(q, k, v, do, window):
     except RuntimeError as e:   # the yardstick only: the port never calls it
         return {"fwd": None, "bwd": None,
                 "note": f"sdpa's memory-efficient backend refused: {e}"}
+
+
+# -- the segment-id and counter-hash dropout arms of K1-K3 and K6 ------------
+
+# GPT-3 1.3B's attention at its training step: batch 8 x 2048 tokens, 16
+# heads of 128, right-padded rows of 1024-2048 tokens, attention dropout 0.1
+GPT_BATCH, GPT_SEQ, GPT_STEPS, GPT_DROPOUT = 8, 2048, 10, 0.1
+GPT_HEADS = 16
+DROPSEG_TRAIN_SHAPE = (GPT_BATCH, GPT_SEQ, GPT_HEADS, GPT_HEADS, HEAD_DIM)
+DROP_SEED = 2 ** 31 - 2
+# (name, (B, Sq, Sk, H, HKV, D), dtype, causal, segments, dropout p)
+DROPSEG_CHECKS = [
+    ("(a) GPT shape, right padding, p 0.1",
+     (GPT_BATCH, GPT_SEQ, GPT_SEQ, GPT_HEADS, GPT_HEADS, 128), "bfloat16",
+     True, "padding", GPT_DROPOUT),
+    ("(a) GPT shape float32",
+     (GPT_BATCH, GPT_SEQ, GPT_SEQ, GPT_HEADS, GPT_HEADS, 128), "float32",
+     True, "padding", GPT_DROPOUT),
+    ("(b) GQA 32/8, packed ids out of order, p 0.1",
+     (1, 2048, 2048, 32, 8, 128), "bfloat16", True, "packed", GPT_DROPOUT),
+    ("(c) rows with no live key, p 0.1", (1, 1024, 1024, 8, 2, 128),
+     "bfloat16", True, "dead rows", GPT_DROPOUT),
+    ("(c) rows with no live key, float32 D 64", (1, 1024, 1024, 4, 2, 64),
+     "float32", True, "dead rows", GPT_DROPOUT),
+    ("(d) cross-length unpadded (K6)", (1, 1920, 3072, 16, 16, 128),
+     "bfloat16", False, "unpadded", 0.0),
+    ("D 256 padding, p 0.1", (2, 512, 512, 4, 4, 256), "bfloat16", True,
+     "padding", GPT_DROPOUT),
+]
+UNPADDED_Q_LENS, UNPADDED_K_LENS = (300, 700, 900), (1000, 1100, 900)
+
+
+def padded_lengths(batch, seq, seed):
+    """Row lengths of a right-padded batch: from seq/2 to seq, numpy
+    seed."""
+    import numpy as np
+    return np.random.default_rng(seed).integers(seq // 2, seq + 1,
+                                                batch).tolist()
+
+
+def dropseg_segments(kind, b, sq, sk, seed, dev):
+    """(q_seg, kv_seg) int32 of one check: right padding as the bool key
+    mask encodes it (queries 0, keys 0 / -2); packed documents whose ids
+    run in a shuffled order (the kernels assume no order); packed with
+    rows 300-339 in no document (-1); flash_attn_unpadded's padded
+    layout."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nn.functional import _segments_of
+    rng = np.random.default_rng(seed)
+    if kind == "padding":
+        lens = torch.tensor(padded_lengths(b, sk, seed), device=dev)
+        ks = torch.where(torch.arange(sk, device=dev)[None] < lens[:, None],
+                         0, -2).to(torch.int32)
+        return torch.zeros(b, sq, dtype=torch.int32, device=dev), ks
+    if kind == "unpadded":
+        cq = torch.tensor(np.cumsum([0, *UNPADDED_Q_LENS]), device=dev)
+        ck = torch.tensor(np.cumsum([0, *UNPADDED_K_LENS]), device=dev)
+        return (_segments_of(int(cq[-1]), cq, sq - int(cq[-1]), -1),
+                _segments_of(int(ck[-1]), ck, sk - int(ck[-1]), -2))
+    lengths = doc_lengths(rng, sq, lo=64, hi=700)
+    ids = rng.permutation(len(lengths))
+    seg = torch.tensor(np.repeat(ids, lengths), dtype=torch.int32,
+                       device=dev)[None].repeat(b, 1)
+    q_seg = seg.clone()
+    if kind == "dead rows":
+        q_seg[:, 300:340] = -1
+    return q_seg, seg
+
+
+def dropseg_faults(q, k, v, do, kw, want, tile=64):
+    """The plain outputs as a kernel with one fault would give them: the
+    keep mask one column off, the segment test ignored, a live tile
+    skipped as dead, dropout applied to l (case (a)); K3 hashing with the
+    kv head's index (case (b), GQA)."""
+    import torch
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    p, seed = kw["dropout_p"], kw["seed"]
+    heads = torch.arange(h, device=q.device)[:, None, None]
+
+    def keep_at(head_of, k0=0):
+        return torch.stack([FK.keep_scale(seed, bi * h + head_of(heads), 0,
+                                          k0, s, s, p, q.device)
+                            for bi in range(b)])
+
+    def with_keep(keep, fn):
+        real = FK._keep
+        FK._keep = lambda *a: keep
+        try:
+            return fn()
+        finally:
+            FK._keep = real
+
+    def fwd(**over):
+        out, lse = FK.fa_forward_plain(q, k, v, return_lse=True,
+                                       **{**kw, **over})
+        return {"out": out, "lse": lse}
+    if g > 1:
+        kv_keep = keep_at(lambda x: x // g)
+        grads = with_keep(kv_keep, lambda: FK.fa_backward_plain(
+            q, k, v, want["out"], want["lse"], do, **kw))
+        return [("K3 hashes with the kv head's index",
+                 {"dk": grads[1], "dv": grads[2]})]
+    off = keep_at(lambda x: x, k0=1)
+    skip = torch.zeros(1, 1, s, s, device=q.device)
+    skip[..., s // 2:s // 2 + tile, s // 4:s // 4 + tile] = float("-inf")
+    # l summed over the dropped p: the kept share renormalised to 1
+    sc = FK._scores(q, FK._repeat_kv(k, g), d ** -0.5, kw["causal"],
+                    q_seg=kw["q_seg"], kv_seg=kw["kv_seg"])
+    m = sc.amax(-1, keepdim=True)
+    pr = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0)).nan_to_num(
+        0.0) * FK.keep_bhqk(seed, b, h, s, s, p, q.device)
+    del sc
+    ld = pr.sum(-1, keepdim=True)
+    out_l = torch.einsum("bhqk,bkhd->bqhd", (pr / ld.clamp_min(1e-30)).to(
+        q.dtype), FK._repeat_kv(v, g)).contiguous()
+    lse_l = (m + torch.log(ld.clamp_min(1e-30)))[..., 0]
+    del pr
+    return [("the keep mask one column off",
+             with_keep(off, lambda: fwd())),
+            ("the segment test ignored", fwd(q_seg=None, kv_seg=None)),
+            ("a live tile skipped as dead", fwd(mask=skip)),
+            ("dropout applied to l", {"out": out_l, "lse": lse_l})]
+
+
+def keep_probes(dev="cuda"):
+    """The keep pattern read straight off the kernels, bit for bit
+    against ``keep_scale``, at B 2, S 2048, H 8 over 2 kv heads, D 128,
+    non-causal, p 0.1, in bf16 and float32. q = 0 and segments ``(r +
+    shift) // 128`` (shift 0, and 64 so that segments straddle the
+    kernels' tiles) make every live probability 1 (lse and delta passed
+    as 0 to K2/K3, the scale 1):
+      K1: v[c] one-hot at c % 128, so out[r, h, c % 128] = keep(h, r, c)
+          * s / n, n the segment's length (a power of two);
+      K2: k[c] one-hot at c % 128, dO = 1 and v as for K1, so dp = 1, ds
+          = keep * s and dq[r, h, c % 128] = keep(h, r, c) * s;
+      K3: dO[r] one-hot at r % 128 on query head g0 of each group only,
+          so dv[c, hk, r % 128] = keep(hk G + g0, r, c) * s: the query
+          head's own index, for g0 = 0 and G - 1.
+    Returns the number of links read and compared."""
+    import torch
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    b, s, h, hkv, d = 2, 2048, 8, 2, 128
+    g = h // hkv
+    links = 0
+    pos = torch.arange(s, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shift in (0, 64):
+            seg_1 = ((pos + shift) // 128).to(torch.int32)
+            seg = seg_1[None].repeat(b, 1).contiguous()
+            same = (seg_1[:, None] == seg_1[None, :]).float()    # [S, S]
+            n = same.sum(-1)                                     # [S]
+            keep = FK.keep_bhqk(DROP_SEED, b, h, s, s, GPT_DROPOUT, dev)
+            kd = keep.to(dtype).float() * same                   # as rounded
+            del keep
+            onehot = torch.zeros(s, d, device=dev)
+            onehot[pos, pos % d] = 1
+            z = torch.zeros(b, s, h, d, dtype=dtype, device=dev)
+            kv1 = onehot[None, :, None, :].expand(b, s, hkv, d).to(
+                dtype).contiguous()
+            kw = dict(q_seg=seg, kv_seg=seg, dropout_p=GPT_DROPOUT,
+                      seed=DROP_SEED)
+            out = FK.fa_forward_cuda(z, kv1, kv1, **kw)
+            want = kd.reshape(b, h, s, s // d, d).sum(3)
+            got = {"K1 out": (out.permute(0, 2, 1, 3).float(),
+                              want / n[:, None])}
+            zero = torch.zeros(b, h, s, device=dev)
+            ones = torch.ones(b, s, h, d, dtype=dtype, device=dev)
+            dq = FK.fa_dq_cuda(z, kv1, kv1, ones, zero, zero, scale=1.0,
+                               **kw)
+            got["K2 dq"] = (dq.permute(0, 2, 1, 3).float(), want)
+            for g0 in (0, g - 1):
+                do = torch.zeros(b, s, h, d, dtype=dtype, device=dev)
+                do[:, :, g0::g] = onehot[None, :, None, :].to(dtype)
+                _, dv = FK.fa_dkv_cuda(z, kv1, kv1, do, zero, zero,
+                                       scale=1.0, **kw)
+                wdv = kd[:, g0::g].transpose(-1, -2).reshape(
+                    b, hkv, s, s // d, d).sum(3)
+                got[f"K3 dv (query head {g0} of each group)"] = (
+                    dv.permute(0, 2, 1, 3).float(), wdv)
+            torch.cuda.synchronize()
+            for name, (x, w) in got.items():
+                if not torch.equal(x, w):
+                    bad = (x != w).nonzero()[:4].tolist()
+                    raise AssertionError(
+                        f"keep probe {name} ({str(dtype)[6:]}, shift "
+                        f"{shift}): {int((x != w).sum())} elements differ "
+                        f"from keep_scale, first at [b, h, row, col % 128] "
+                        f"{bad}")
+                links += int(same.sum()) * (x.shape[0] * x.shape[1])
+            print(f"keep probe exact: {str(dtype)[6:]}, segments shifted "
+                  f"by {shift}: " + ", ".join(got), flush=True)
+            del kd, got, out, dq, dv, do, z, kv1, ones
+    return links
+
+
+def dropseg_pairs(lengths, s):
+    """Live (row, key) pairs of one head under causal attention over
+    right-padded rows: row r of a row of length n sees min(r + 1, n)
+    keys."""
+    return sum(sum(min(r + 1, n) for r in range(s)) for n in lengths)
+
+
+def dropseg_work(b, sq, sk, h, hkv, d, pairs, itemsize):
+    """(bytes, flops) of K1 (or K6), K2 and K3 on ``pairs`` live pairs:
+    :func:`masked_work` with the segment ids ([B, Sq] and [B, Sk] int32)
+    in place of the bands; the dropout hash's integer operations are not
+    counted (the card's peak table has no integer rate)."""
+    work = masked_work(b, sq, sk, h, hkv, d, pairs, itemsize, n_fm=0)
+    seg = 4 * b * (sq + sk)
+    return {k: (nb + seg, fl) for k, (nb, fl) in work.items()}
+
+
+def library_dropseg_ms(q, k, v, do, lengths):
+    """The yardsticks the port never calls, on the same tensors seen as
+    [B,H,S,D]: SDPA's flash backend with dropout_p=0.1, is_causal=True
+    (no padding: it takes no mask), and its memory-efficient backend with
+    the [B,1,S,S] bool causal-and-padding mask; forward and backward ms
+    of each, None where a backend refuses."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    s = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    pos = torch.arange(s, device=q.device)
+    lens = torch.tensor(lengths, device=q.device)
+    mask = ((pos[None, :] <= pos[:, None])[None]
+            & (pos[None, None, :] < lens[:, None, None]))[:, None]
+    res = {}
+    for key, backend, kw in (
+            ("dropout", SDPBackend.FLASH_ATTENTION,
+             dict(dropout_p=GPT_DROPOUT, is_causal=True)),
+            ("segments", SDPBackend.EFFICIENT_ATTENTION,
+             dict(attn_mask=mask))):
+        try:
+            with sdpa_kernel([backend]):
+                fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, **kw), iters=5)
+                out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+                bwd = cuda_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True), iters=3)
+            res[key] = {"fwd": fwd, "bwd": bwd}
+        except RuntimeError as e:   # the yardstick only
+            res[key] = {"fwd": None, "bwd": None, "refused": str(e)}
+    return res
+
+
+def unpadded_drive(dev="cuda"):
+    """``flash_attn_unpadded`` through the entry point a user calls, with
+    gradients, the counts set to 0 just before: self-attention packing
+    (equal padded totals: K1's segment arm) and cross-length packing (K6's
+    segment arm), each then K2 and K3 in their segment arms. Returns the
+    counts."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(n):
+        return torch.randn(n, GPT_HEADS, HEAD_DIM, generator=g, device=dev
+                           ).to(torch.bfloat16).requires_grad_()
+    cq = torch.tensor(np.cumsum([0, *UNPADDED_Q_LENS]), dtype=torch.int32,
+                      device=dev)
+    ck = torch.tensor(np.cumsum([0, *UNPADDED_K_LENS]), dtype=torch.int32,
+                      device=dev)
+    tq, tk = int(cq[-1]), int(ck[-1])
+    q, k, v = rnd(tq), rnd(tk), rnd(tk)
+    FK.reset_stats()
+    out, _ = flash_attn_unpadded(q, q, q, cq, cq, max(UNPADDED_Q_LENS),
+                                 max(UNPADDED_Q_LENS), causal=True)
+    out.float().square().sum().backward()
+    out2, _ = flash_attn_unpadded(q, k, v, cq, ck, max(UNPADDED_Q_LENS),
+                                  max(UNPADDED_K_LENS))
+    out2.float().square().sum().backward()
+    torch.cuda.synchronize()
+    counts = dict(FK.stats)
+    want = {"fwd_launches": 1, "stream_fwd_launches": 1, "dq_launches": 2,
+            "dkv_launches": 2, "seg_arm_launches": 6,
+            "drop_arm_launches": 0}
+    check_counts(counts, want, "flash_attn_unpadded")
+    for name, x in (("out", out), ("out cross", out2), ("dq", q.grad),
+                    ("dk", k.grad), ("dv", v.grad)):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"flash_attn_unpadded {name} not finite")
+    print(f"unpadded ok: flash_attn_unpadded self-attention causal ({tq} "
+          f"tokens in {len(UNPADDED_Q_LENS)} documents) and cross-length "
+          f"({tq} against {tk}), with gradients: launches K1 "
+          f"{counts['fwd_launches']} K6 {counts['stream_fwd_launches']} K2 "
+          f"{counts['dq_launches']} K3 {counts['dkv_launches']}, all in "
+          "the segment arm, plain calls 0", flush=True)
+    return counts
+
+
+def dropseg_phase(dev="cuda"):
+    """The segment-id and dropout arms of K1-K3 and the segment arm of K6
+    against their plain versions on the card, element by element
+    (:func:`fa_limits`), dead rows exactly 0; the keep pattern read off
+    each kernel bit for bit (:func:`keep_probes`); the planted faults of
+    :func:`dropseg_faults` rejected; ``flash_attn_unpadded`` driven with
+    exact counts; then timed at GPT's training shape beside the bound,
+    the plain versions and SDPA."""
+    import torch
+    from paddle_tpu_torch.ops import fa_kernel as FK
+
+    readings = {"probe_links": keep_probes(dev)}
+    worst = {}
+    for i, (name, (b, sq, sk, h, hkv, d), dtype, causal, kind,
+            p) in enumerate(DROPSEG_CHECKS):
+        dtype = getattr(torch, dtype)
+        g = torch.Generator(device=dev).manual_seed(70 + i)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        q, k, v, do = (rnd(b, sq, h, d), rnd(b, sk, hkv, d),
+                       rnd(b, sk, hkv, d), rnd(b, sq, h, d))
+        q_seg, kv_seg = dropseg_segments(kind, b, sq, sk, 70 + i, dev)
+        kw = dict(causal=causal, q_seg=q_seg, kv_seg=kv_seg, dropout_p=p,
+                  seed=DROP_SEED - i if p else None)
+        if sq != sk:
+            out, lse = FK.fa_forward_masked_cuda(
+                q, k, v, return_lse=True, causal=causal, q_seg=q_seg,
+                kv_seg=kv_seg)
+        else:
+            out, lse = FK.fa_forward_cuda(q, k, v, return_lse=True, **kw)
+        w_out, w_lse = FK.fa_forward_plain(q, k, v, return_lse=True, **kw)
+        grads = FK.fa_backward_cuda(q, k, v, w_out, w_lse, do, **kw)
+        w_grads = FK.fa_backward_plain(q, k, v, w_out, w_lse, do, **kw)
+        torch.cuda.synchronize()
+        got = dict(zip(FA_NAMES, (out, lse) + grads))
+        want = dict(zip(FA_NAMES, (w_out, w_lse) + w_grads))
+        readings[name], cmp, sigma = masked_check(name, q, k, v, do, kw,
+                                                  got, want)
+        if dtype == torch.bfloat16:
+            arm = "stream" if sq != sk else "fwd"
+            worst[arm] = max(worst.get(arm, 0.0), cmp["out"][1],
+                             cmp["lse"][1])
+            worst["dq"] = max(worst.get("dq", 0.0), cmp["dq"][1])
+            worst["dkv"] = max(worst.get("dkv", 0.0), cmp["dk"][1],
+                               cmp["dv"][1])
+        print(f"kernel check ok: dropseg {name}: B,Sq,Sk,H,HKV,D="
+              f"{(b, sq, sk, h, hkv, d)} causal={causal} {str(dtype)[6:]} "
+              f"p={p}, {readings[name]['dead_rows']} dead rows exact: "
+              + " ".join(f"{n} err {e:.3e} ratio {r:.3f}"
+                         for n, (r, e) in cmp.items()), flush=True)
+        if dtype == torch.bfloat16 and kind in ("padding", "packed") \
+                and d == 128:
+            for fault, tensors in dropseg_faults(q, k, v, do, kw, want):
+                r = {n: fa_compare({n: t}, {n: want[n]}, sigma)[n][0]
+                     for n, t in tensors.items()}
+                readings[name]["planted: " + fault] = r
+                if not max(r.values()) > 1.0:
+                    raise AssertionError(f"the check passes a planted "
+                                         f"fault: {fault}: ratios {r}")
+                print(f"planted fault rejected: {fault}: " + " ".join(
+                    f"{n} ratio {x:.2f}" for n, x in r.items()), flush=True)
+        del q, k, v, do, out, lse, w_out, w_lse, grads, w_grads, got, want
+        del sigma, q_seg, kv_seg
+        torch.cuda.empty_cache()
+    readings["unpadded"] = unpadded_drive(dev)
+
+    # times at GPT's training shape: the dropout + segment arms of the
+    # training path, and the segment arms alone (no dropout); K6's
+    # segment arm at case (d)'s cross-length shape
+    b, s, h, hkv, d = DROPSEG_TRAIN_SHAPE
+    bf16 = torch.bfloat16
+    q, k, v, do, _ = fa_inputs(*DROPSEG_TRAIN_SHAPE, bf16, seed=102,
+                               dev=dev)
+    lengths = padded_lengths(b, s, 70)
+    q_seg, kv_seg = dropseg_segments("padding", b, s, s, 70, dev)
+    lib = library_dropseg_ms(q, k, v, do, lengths)
+    pairs = h * dropseg_pairs(lengths, s)
+    work = dropseg_work(b, s, s, h, hkv, d, pairs, q.element_size())
+    rows = {}
+    for arm, p, lib_key in (("seg_dropout", GPT_DROPOUT, "dropout"),
+                            ("seg", 0.0, "segments")):
+        kw = dict(causal=True, q_seg=q_seg, kv_seg=kv_seg, dropout_p=p,
+                  seed=DROP_SEED if p else None)
+        out, lse = FK.fa_forward_cuda(q, k, v, return_lse=True, **kw)
+        delta = FK._delta(out, do, None)
+        t = {"fwd": cuda_ms(lambda: FK.fa_forward_cuda(
+                 q, k, v, return_lse=True, **kw), iters=5),
+             "dq": cuda_ms(lambda: FK.fa_dq_cuda(q, k, v, do, lse, delta,
+                                                 **kw), iters=5),
+             "dkv": cuda_ms(lambda: FK.fa_dkv_cuda(q, k, v, do, lse, delta,
+                                                   **kw), iters=5)}
+        plain_fwd = cuda_ms(lambda: FK.fa_forward_plain(
+            q, k, v, return_lse=True, **kw), iters=1, warmup=1)
+        plain_bwd = cuda_ms(lambda: FK.fa_backward_plain(
+            q, k, v, out, lse, do, **kw), iters=1, warmup=1)
+        torch.cuda.empty_cache()
+        for key, plain_ms, lib_ms in (
+                ("fwd", plain_fwd, lib[lib_key]["fwd"]),
+                ("dq", plain_bwd, lib[lib_key]["bwd"]),
+                ("dkv", plain_bwd, lib[lib_key]["bwd"])):
+            nbytes, flops = work["stream" if key == "fwd" else key]
+            bound_ms, bound_by = bound(nbytes, flops)
+            rows[f"{arm}_{key}"] = dict(
+                ms=t[key], plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops, pairs=pairs, max_abs_err=worst[key])
+            print(f"kernel time dropseg {arm} {key}: B,S,H,HKV,D="
+                  f"{DROPSEG_TRAIN_SHAPE} causal, rows of {min(lengths)}-"
+                  f"{max(lengths)} tokens, p={p}, bf16: kernel "
+                  f"{t[key]:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"{lib_ms} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{nbytes} B, {flops} flop, {pairs} live pairs)",
+                  flush=True)
+        del out, lse, delta
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    # K6's segment arm at case (d)'s shape; the yardstick the
+    # memory-efficient SDPA with the [1, 1, Sq, Sk] bool mask
+    (_, (b, sq, sk, h, hkv, d), *_) = DROPSEG_CHECKS[5]
+    g = torch.Generator(device=dev).manual_seed(103)
+    q = torch.randn(b, sq, h, d, generator=g, device=dev).to(bf16)
+    k, v = (torch.randn(b, sk, hkv, d, generator=g, device=dev).to(bf16)
+            for _ in range(2))
+    q_seg, kv_seg = dropseg_segments("unpadded", b, sq, sk, 0, dev)
+    ms = cuda_ms(lambda: FK.fa_forward_masked_cuda(
+        q, k, v, return_lse=True, q_seg=q_seg, kv_seg=kv_seg), iters=5)
+    plain_ms = cuda_ms(lambda: FK.fa_forward_plain(
+        q, k, v, return_lse=True, q_seg=q_seg, kv_seg=kv_seg), iters=1,
+        warmup=1)
+    keep = ((q_seg[0][:, None] == kv_seg[0][None, :])
+            & (q_seg[0][:, None] >= 0))[None, None]
+    try:
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in (q, k, v)), attn_mask=keep),
+                iters=5)
+    except RuntimeError:
+        lib_ms = None
+    xpairs = h * int(keep.sum())
+    nbytes, flops = dropseg_work(b, sq, sk, h, hkv, d, xpairs,
+                                 q.element_size())["stream"]
+    bound_ms, bound_by = bound(nbytes, flops)
+    rows["seg_stream"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              bytes=nbytes, flops=flops, pairs=xpairs,
+                              max_abs_err=worst["stream"])
+    print(f"kernel time dropseg K6 segments: B,Sq,Sk,H,HKV,D="
+          f"{(b, sq, sk, h, hkv, d)} non-causal bf16: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}: {nbytes} B, {flops} flop, {xpairs} live pairs)",
+          flush=True)
+    print("kernel time dropseg: max_abs_err is the largest over the bf16 "
+          "checks; the plain and sdpa backward times compute dq, dk and dv "
+          "together; sdpa for dropout is the flash backend with "
+          "dropout_p=0.1, is_causal=True and no padding, for segments the "
+          "memory-efficient backend with the bool mask " +
+          "; ".join(f"{k_}: {x['refused']}" for k_, x in lib.items()
+                    if "refused" in x), flush=True)
+    rows["checks"] = readings
+    return rows
 
 
 # -- multi-tensor AdamW (K4) -------------------------------------------------
@@ -1214,12 +1713,13 @@ def _counts():
 def attention_counts(cfg, n):
     """The flash-attention launches ``n`` forward+backward passes of every
     layer must show: K6 with a sliding window (FlashMask), else K1; K2
-    and K3 either way."""
+    and K3 either way; none in a segment or dropout arm."""
     fwd = n * cfg.num_hidden_layers
     k6 = bool(cfg.sliding_window)
     return {"fwd_launches": 0 if k6 else fwd,
             "stream_fwd_launches": fwd if k6 else 0,
-            "dq_launches": fwd, "dkv_launches": fwd}
+            "dq_launches": fwd, "dkv_launches": fwd,
+            "seg_arm_launches": 0, "drop_arm_launches": 0}
 
 
 def check_counts(counts, want, what):
@@ -1317,10 +1817,14 @@ def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
 
 
 def path_compare_phase(cfg, dev=None, steps=3, batch=TRAIN_BATCH,
-                       seq=TRAIN_SEQ):
+                       seq=TRAIN_SEQ, gpt=False):
     """The same short run through the kernels and through their plain
     versions (the CUDA wrappers patched to the plain ones here; the
-    package has no switch for it): the losses must agree."""
+    package has no switch for it): the losses must agree. With ``gpt``
+    it is GPT's step (:func:`gpt_setup`, the loss in float32): each run
+    builds its model from seed 0, so its generator starts in the same
+    state and draws the same hidden-dropout masks and attention seeds,
+    and the hash gives both paths the same attention keep masks."""
     import gc
 
     import torch
@@ -1328,9 +1832,14 @@ def path_compare_phase(cfg, dev=None, steps=3, batch=TRAIN_BATCH,
     from paddle_tpu_torch.ops import fa_kernel as FK
 
     def run():
-        m, xs = train_setup(cfg, dev, batch, seq, steps)
+        if gpt:
+            m, xs, ys, _ = gpt_setup(cfg, dev, batch, seq, steps,
+                                     f32_loss=True)
+        else:
+            m, xs = train_setup(cfg, dev, batch, seq, steps)
+            xs, ys = [xs], [xs]
         _reset_counts()
-        losses = m.train_batch_loop([xs], [xs]).tolist()
+        losses = m.train_batch_loop(xs, ys).tolist()
         counts = _counts()
         del m
         gc.collect()
@@ -1351,14 +1860,17 @@ def path_compare_phase(cfg, dev=None, steps=3, batch=TRAIN_BATCH,
         AK.adamw_update_cuda = saved[-1]
     layers = cfg.num_hidden_layers
     n = layers * steps
-    check_counts(kc, {**attention_counts(cfg, steps),
+    check_counts(kc, {**(gpt_counts(cfg, steps) if gpt else
+                         attention_counts(cfg, steps)),
                       "adamw_kernel_launches": steps}, "kernel path")
     launched = [k for k in pc if k.endswith("launches") and pc[k]]
     if (launched or pc["plain_fwd_calls"] != n or pc["plain_bwd_calls"] != n
             or pc["adamw_plain_calls"] != steps):
         raise AssertionError(f"plain path counts {pc}")
     diff = max(abs(a - b) for a, b in zip(kernel_losses, plain_losses))
-    print(f"path check: window {cfg.sliding_window}, batch {batch} x {seq}, "
+    window = getattr(cfg, "sliding_window", None)
+    print(f"path check: {'gpt, dropout 0.1' if gpt else f'window {window}'}"
+          f", batch {batch} x {seq}, "
           f"L={layers} full width, {steps} steps: kernels "
           f"{[round(x, 5) for x in kernel_losses]}, plain "
           f"{[round(x, 5) for x in plain_losses]}, max diff {diff:.3e} "
@@ -1366,8 +1878,144 @@ def path_compare_phase(cfg, dev=None, steps=3, batch=TRAIN_BATCH,
     if not diff <= PATH_LOSS_TOL:
         raise AssertionError(f"kernel path and plain path differ by {diff}")
     return dict(layers=layers, steps=steps, batch=batch, seq=seq,
-                window=cfg.sliding_window, kernel_losses=kernel_losses,
+                window=window, kernel_losses=kernel_losses,
                 plain_losses=plain_losses, max_diff=diff)
+
+
+# -- GPT-3 1.3B training: right-padded rows, hidden and attention dropout ----
+
+
+def gpt_setup(cfg, dev=None, batch=GPT_BATCH, seq=GPT_SEQ, steps=GPT_STEPS,
+              f32_loss=False):
+    """GPT's training objects: the model from seed 0 (its generator then
+    draws every dropout mask and attention seed), the criterion,
+    AdamW(1e-4, multi_precision) under hapi.Model, and ``steps`` copies of
+    one right-padded batch from numpy seed 4 (row lengths seq/2 to seq,
+    the bool key mask [B, 1, 1, S], labels -100 on the padding). Returns
+    (model, inputs, labels, lengths): inputs ``[ids, position ids,
+    mask]``, as ``Model`` feeds them positionally. The criterion takes
+    the cross entropy in the logits' dtype, as the JAX package's does (a
+    bf16 loss, 0.0625 apart at ~11); ``f32_loss`` widens the logits to
+    float32 first, for the path comparison."""
+    import numpy as np
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForCausalLM(cfg, device=dev, seed=0)
+    m = Model(model)
+    crit = LlamaPretrainingCriterion(cfg)
+    m.prepare(AdamW(1e-4, parameters=model.parameters(),
+                    multi_precision=True),
+              (lambda logits, labels: crit(logits.float(), labels))
+              if f32_loss else crit)
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(seq // 2, seq + 1, batch)
+    ids = rng.integers(0, cfg.vocab_size, (batch, seq))
+    keep = np.arange(seq)[None] < lengths[:, None]
+    labels = np.where(keep, ids, -100)
+    pos = np.broadcast_to(np.arange(seq), (batch, seq))
+
+    def steps_of(x):
+        return np.broadcast_to(x, (steps,) + x.shape).copy()
+    inputs = [steps_of(ids), steps_of(pos), steps_of(keep[:, None, None])]
+    return m, inputs, [steps_of(labels)], lengths.tolist()
+
+
+def gpt_counts(cfg, n):
+    """GPT's launches over ``n`` steps: K1, K2 and K3 once per layer and
+    step, every one in both the segment and the dropout arm; K6 never."""
+    fwd = n * cfg.num_hidden_layers
+    return {"fwd_launches": fwd, "stream_fwd_launches": 0,
+            "dq_launches": fwd, "dkv_launches": fwd,
+            "seg_arm_launches": 3 * fwd, "drop_arm_launches": 3 * fwd}
+
+
+def gpt_phase(cfg, smi, dev=None, profile_steps=0, batch=GPT_BATCH,
+              seq=GPT_SEQ, steps=GPT_STEPS):
+    """GPT-3 1.3B at full width and depth: a counted run of ``steps``
+    steps of ``train_batch_loop``, then a timed one, then synchronised
+    single steps for the step time's median."""
+    import torch
+    from paddle_tpu_torch.models.gpt import count_params, flops_per_token
+
+    t0 = time.perf_counter()
+    m, xs, ys, lengths = gpt_setup(cfg, dev, batch, seq, steps)
+    on_card = m.device.type == "cuda"
+    print(f"gpt model: h={cfg.hidden_size} L={cfg.num_hidden_layers} "
+          f"heads={cfg.num_attention_heads} ffn={cfg.intermediate_size} "
+          f"vocab={cfg.vocab_size}, dropout hidden "
+          f"{cfg.hidden_dropout_prob} attention "
+          f"{cfg.attention_dropout_prob}, {count_params(cfg) / 1e9:.3f}B "
+          f"params bf16 + f32 masters, batch {batch} x {seq} right-padded "
+          f"to rows of {lengths}, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = m.train_batch_loop(xs, ys)
+    first_wall = time.perf_counter() - t0
+    counts = _counts()
+    check_counts(counts, {**gpt_counts(cfg, steps),
+                          "adamw_kernel_launches": steps}, "gpt training")
+    ls = losses.tolist()
+    expect = expected_first_loss(cfg)
+    if not all(math.isfinite(x) for x in ls):
+        raise AssertionError(f"gpt losses not finite: {ls}")
+    if abs(ls[0] - expect) > FIRST_LOSS_TOL:
+        raise AssertionError(f"gpt first loss {ls[0]} is not within "
+                             f"{FIRST_LOSS_TOL} of {expect:.4f}")
+    if not ls[-1] < ls[0]:
+        raise AssertionError(f"gpt loss did not fall: {ls}")
+    print(f"gpt ok: {steps} steps, losses {[round(x, 4) for x in ls]} "
+          f"(first within {FIRST_LOSS_TOL} of ln V + s2/2 = {expect:.4f}); "
+          f"launches K1 {counts['fwd_launches']} K6 "
+          f"{counts['stream_fwd_launches']} K2 {counts['dq_launches']} K3 "
+          f"{counts['dkv_launches']} ({cfg.num_hidden_layers} layers x "
+          f"{steps} steps; segment arm {counts['seg_arm_launches']}, dropout "
+          f"arm {counts['drop_arm_launches']}), K4 "
+          f"{counts['adamw_kernel_launches']}, plain calls 0", flush=True)
+
+    t0 = time.perf_counter()
+    m.train_batch_loop(xs, ys)
+    loop_s = time.perf_counter() - t0
+    one_x, one_y = [x[0] for x in xs], [y[0] for y in ys]
+    step_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        m.train_batch(one_x, one_y)
+        step_s.append(time.perf_counter() - t0)
+    step_s.sort()
+    padded = batch * seq
+    real = sum(lengths)
+    tok_s = steps * padded / loop_s
+    mfu = flops_per_token(cfg, seq) * tok_s / BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    summary = dict(card=smi, layers=cfg.num_hidden_layers, batch=batch,
+                   seq=seq, steps=steps, lengths=lengths, losses=ls,
+                   counted_run_s=first_wall, loop_s=loop_s,
+                   tokens_per_s=tok_s, real_tokens_per_s=steps * real / loop_s,
+                   step_p50_s=step_s[2], step_min_s=step_s[0],
+                   step_max_s=step_s[-1], mfu=mfu,
+                   flops_per_token=flops_per_token(cfg, seq),
+                   peak_mem_gib=peak, launches=counts)
+    print(f"training gpt3_1_3b [{smi}]: {tok_s:.1f} padded tokens/s "
+          f"({steps * real / loop_s:.1f} real: {real} of {padded} tokens a "
+          f"step) over a {steps}-step train_batch_loop ({loop_s:.3f} s), "
+          f"step p50 {step_s[2]:.4f} s (min {step_s[0]:.4f}, max "
+          f"{step_s[-1]:.4f}; 5 synchronised train_batch), MFU "
+          f"{100 * mfu:.2f} % of 989 TFLOP/s at "
+          f"{flops_per_token(cfg, seq) / 1e9:.3f} GFLOP a padded token, "
+          f"peak memory {peak if peak is None else round(peak, 2)} GiB",
+          flush=True)
+    if profile_steps:
+        summary["profile"] = trace_steps(
+            lambda: m.train_batch(one_x, one_y), profile_steps,
+            f"gpt3_1_3b train step (batch {batch} x {seq}, L="
+            f"{cfg.num_hidden_layers})", smi)
+    return summary
 
 
 # -- packed documents (FlashMask's startend_row_indices) ---------------------
@@ -1761,7 +2409,7 @@ def main(argv=None):
     build_s = build([A.KERNEL_LIBRARY, *KERNEL_LIBRARIES])
     print(f"kernels built from source in {build_s:.1f} s", flush=True)
 
-    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models import GPTConfig, LlamaConfig
     train_cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS,
                                       dtype="bfloat16",
                                       fuse_linear_cross_entropy=True)
@@ -1787,6 +2435,9 @@ def main(argv=None):
     if "masked" in phases:
         res["masked"] = phase("kernels K6 and the masked K2/K3",
                               masked_fa_phase)
+    if "dropseg" in phases:
+        res["dropseg"] = phase("the segment and dropout arms",
+                               dropseg_phase)
     if "train" in phases:
         res["train"] = phase("train", train_phase, train_cfg, smi,
                              profile_steps=args.profile)
@@ -1815,6 +2466,14 @@ def main(argv=None):
                                    fuse_linear_cross_entropy=True,
                                    sliding_window=MASKED_WINDOW),
             batch=1, seq=MASKED_S)
+    if "gpt" in phases:
+        res["gpt"] = phase("gpt", gpt_phase, GPTConfig.gpt3_1_3b(
+            dtype="bfloat16"), smi, profile_steps=args.profile)
+    if "gpt_path" in phases:
+        res["gpt_path"] = phase(
+            "gpt kernel path vs plain path", path_compare_phase,
+            GPTConfig.gpt3_1_3b(num_hidden_layers=2, dtype="bfloat16"),
+            batch=GPT_BATCH, seq=GPT_SEQ, gpt=True)
     if "serve" in phases:
         # the dense reference forward of the engine check is plain float32
         # attention, so K5 is held against a plain reference, not K1
@@ -1838,14 +2497,17 @@ def main(argv=None):
     return 0
 
 
-PHASES = ("kernels", "masked", "train", "mistral", "packed", "mistral_path",
-          "serve")
+PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
+          "mistral_path", "gpt", "gpt_path", "serve")
 
 
 def kernel_rows(res):
     """The ``kernels`` JSON rows: K5, K1, K2, K3, K6 and the masked arms
-    of K2/K3 (launches from the Mistral run), K4, each with its launches
-    on its path's counted run and this run's measurements."""
+    of K2/K3 (launches from the Mistral run), the segment + dropout arms
+    of K1-K3 (launches from the GPT run), their segment arms alone and
+    K6's (launches from the ``flash_attn_unpadded`` drive), K4, each with
+    its launches on its path's counted run and this run's
+    measurements."""
     rows = []
     k5 = res.get("k5")
     if k5:
@@ -1886,6 +2548,31 @@ def kernel_rows(res):
                              replaces=replaces,
                              launches=mistral.get(count),
                              **_row_numbers(res["masked"][key])))
+    gpt = res.get("gpt", {}).get("launches", {})
+    unpadded = res.get("dropseg", {}).get("checks", {}).get("unpadded", {})
+    for key, name, replaces, count, runs in (
+            ("seg_dropout_fwd", "flash_attention_fwd_seg_dropout",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:540", "fwd_launches", gpt),
+            ("seg_dropout_dq", "flash_attention_bwd_dq_seg_dropout",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:811", "dq_launches", gpt),
+            ("seg_dropout_dkv", "flash_attention_bwd_dkv_seg_dropout",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:862", "dkv_launches", gpt),
+            ("seg_fwd", "flash_attention_fwd_seg",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:540", "fwd_launches",
+             unpadded),
+            ("seg_dq", "flash_attention_bwd_dq_seg",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:811", "dq_launches",
+             unpadded),
+            ("seg_dkv", "flash_attention_bwd_dkv_seg",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:862", "dkv_launches",
+             unpadded),
+            ("seg_stream", "flash_attention_fwd_stream_seg",
+             "paddle_tpu/ops/pallas/_fa_kernel.py:257",
+             "stream_fwd_launches", unpadded)):
+        if "dropseg" in res:
+            rows.append(dict(name=name, route="cuda", source=fa_src,
+                             replaces=replaces, launches=runs.get(count),
+                             **_row_numbers(res["dropseg"][key])))
     if "adamw" in res:
         rows.append(dict(name="adamw_multi_tensor", route="cuda",
                          source="paddle_tpu_torch/ops/csrc/adamw.cu",

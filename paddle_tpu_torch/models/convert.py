@@ -1,24 +1,57 @@
-"""Carry weights between the JAX package's LLaMA and the port.
+"""Carry weights between the JAX package's LLaMA or GPT and the port.
 
 ``paddle_tpu`` keeps a Linear weight ``[in, out]``; ``torch.nn.Linear``
-keeps ``[out, in]``. Every other tensor (embeddings, norm weights) has
-the same layout in both.
+keeps ``[out, in]``. Every other tensor (embeddings, norm weights and
+biases, Linear biases) has the same layout in both. The model is told
+apart by its config (:class:`~.gpt.GPTConfig` or the LLaMA one).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .gpt import GPTConfig
+
 __all__ = ["state_dict_from_paddle_tpu", "state_dict_to_paddle_tpu"]
 
 _LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
             "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
-            "mlp.down_proj")
+            "mlp.down_proj", "attn.qkv_proj", "attn.out_proj", "fc_in",
+            "fc_out")
+
+
+def _gpt_shapes(cfg):
+    """``{key: shape}`` of the JAX GPT's ``state_dict()`` (Linear weights
+    ``[in, out]``)."""
+    h, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = {"gpt.wte.weight": (v, h),
+              "gpt.wpe.weight": (cfg.max_position_embeddings, h),
+              "gpt.ln_f.weight": (h,), "gpt.ln_f.bias": (h,)}
+    layer = {"ln_1.weight": (h,), "ln_1.bias": (h,),
+             "attn.qkv_proj.weight": (h, 3 * h),
+             "attn.qkv_proj.bias": (3 * h,),
+             "attn.out_proj.weight": (h, h), "attn.out_proj.bias": (h,),
+             "ln_2.weight": (h,), "ln_2.bias": (h,),
+             "fc_in.weight": (h, m), "fc_in.bias": (m,),
+             "fc_out.weight": (m, h), "fc_out.bias": (h,)}
+    for i in range(cfg.num_hidden_layers):
+        shapes.update({f"gpt.h.{i}.{k}": shp for k, shp in layer.items()})
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head.weight"] = (h, v)
+    return shapes
+
+
+def _embedding_key(cfg):
+    """The key a tied head shares its weight with."""
+    return ("gpt.wte.weight" if isinstance(cfg, GPTConfig)
+            else "llama.embed_tokens.weight")
 
 
 def _expected_shapes(cfg):
     """``{key: shape}`` of the JAX model's ``state_dict()`` for ``cfg``
     (Linear shapes in the JAX ``[in, out]`` layout)."""
+    if isinstance(cfg, GPTConfig):
+        return _gpt_shapes(cfg)
     h, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     nh = cfg.num_attention_heads
     kv = (cfg.num_key_value_heads or nh) * (h // nh)
@@ -47,7 +80,8 @@ def _is_linear(key):
 def state_dict_from_paddle_tpu(np_state: dict, cfg) -> dict:
     """Map the JAX model's ``state_dict()`` (as numpy arrays, under its
     own key names) to a ``state_dict`` for the port's
-    :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM`.
+    :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM` or
+    :class:`~paddle_tpu_torch.models.gpt.GPTForCausalLM`.
 
     Raises ``KeyError`` on a missing or unexpected key and
     ``ValueError`` on a shape that does not match ``cfg``."""
@@ -66,7 +100,7 @@ def state_dict_from_paddle_tpu(np_state: dict, cfg) -> dict:
         t = torch.tensor(arr)
         out[key] = t.T.contiguous() if _is_linear(key) else t
     if cfg.tie_word_embeddings:
-        out["lm_head.weight"] = out["llama.embed_tokens.weight"]
+        out["lm_head.weight"] = out[_embedding_key(cfg)]
     return out
 
 

@@ -2,30 +2,46 @@
 // plain C interface that paddle_tpu_torch/ops/fa_kernel.py loads through
 // ctypes.
 //
-// Replaces four TPU kernels of paddle_tpu/ops/pallas/_fa_kernel.py (all
-// but their segment-id and dropout arms):
+// Replaces four TPU kernels of paddle_tpu/ops/pallas/_fa_kernel.py, every
+// arm of each:
 //   K1 _fa_fwd_kernel        (pallas_call at _fa_kernel.py:540): the
 //      resident-K/V online-softmax forward, Sq == Sk, no mask: causal
 //      k-loop bound, GQA (query head h reads kv head h / G), optional
-//      log-sum-exp output;
+//      log-sum-exp output; segment ids (:231-249) and the counter-hash
+//      dropout (:226) as compile-time arms;
 //   K6 _fa_fwd_stream_kernel (pallas_call at _fa_kernel.py:540): the
 //      streamed forward the JAX package routes masked and cross-length
 //      calls to (_fa_kernel.py:446): as K1, and Sq may differ from Sk (the
 //      causal diagonal at offset = Sk - Sq), an additive float32 mask
 //      [B|1, H|1, Sq, Sk], one or two FlashMask row bands per key column
-//      [B|1, H|1, Sk] int32, and k tiles dead for the whole q tile skipped;
+//      [B|1, H|1, Sk] int32, segment ids (:312-318), and k tiles dead for
+//      the whole q tile skipped; no dropout (the TPU file refuses it too);
 //   K2 _fa_bwd_dq_kernel     (pallas_call at _fa_kernel.py:811): p = exp(s -
-//      lse), ds = p * (dp - delta), dq += ds K scale;
-//   K3 _fa_bwd_dkv_kernel    (pallas_call at _fa_kernel.py:862): dv += p^T dO,
-//      dk += ds^T Q scale, summed over the G query heads of a kv head.
-// K2 and K3 have two arms each: the plain one (causal with offset) and the
-// masked one (the mask and bands too, with the same dead-tile skip as K6).
-// Every kernel masks through one function, mask_score (the TPU file's
+//      lse), dp = dO V^T (times keep / (1 - p) under dropout, :607),
+//      ds = p * (dp - delta), dq += ds K scale;
+//   K3 _fa_bwd_dkv_kernel    (pallas_call at _fa_kernel.py:862): dv += (p
+//      keep)^T dO, dk += ds^T Q scale, summed over the G query heads of a kv
+//      head; under dropout each query head hashes with its own b * H + h
+//      (:676-679).
+// Each kernel is compiled in the arms it takes (kArm: kArmMask the additive
+// mask and the bands, kArmSeg segment ids, kArmDrop dropout), so the plain
+// LLaMA arms compile to the code they had before the others existed. Every
+// kernel masks through one function, mask_score (the TPU file's
 // _masked_scores), in its order: rows past Sq and keys past Sk, causal,
-// each band [start, end) of the key's column, then the additive mask. A
-// row with no live key gives out 0 and lse -inf (acc / max(l, 1e-30),
+// each band [start, end) of the key's column, the additive mask, then the
+// segment test (equal ids match, a negative id matches nothing). A row
+// with no live key gives out 0 and lse -inf (acc / max(l, 1e-30),
 // m + log(max(l, 1e-30)) with m = -inf), and zero gradients: p is taken
 // only where the masked score is finite, as _fa_kernel.py:600-601 does.
+//
+// Dropout is the TPU file's _keep_scale (:129-161) for one element: two
+// murmur3 fmix32 rounds over row * 0x9E3779B1 ^ col * 0x85EBCA77 ^
+// (b * H + h) * 0xC2B2AE3D ^ seed in uint32, the link kept where the hash
+// is >= the threshold min(p * 2^32, 2^32 - 1) and scaled by float32(1 /
+// (1 - p)); the host computes both as the JAX function does. Rows and
+// columns are absolute positions, so the forward and both backward
+// kernels draw the same mask bit for bit. As in _online_softmax_step, the
+// forward's l and lse stay undropped and only p V takes the kept links.
 //
 // Where the scale is applied: the backward kernels scale s after the dot
 // (as the TPU kernels do); the CUDA-core forward scales q before its dot
@@ -37,8 +53,9 @@
 // Layouts: q, o, dO [B, Sq, H, D], k, v [B, Sk, HKV, D], contiguous, read
 // and written in place with strides (no [B*H, S, D] transposes); lse and
 // delta [B, H, Sq] float32; the mask read through its four element strides
-// (0 over a broadcast dim), the bands [n, MB, MH, Sk] through theirs. bf16
-// or float32 in, outputs in the input type.
+// (0 over a broadcast dim), the bands [n, MB, MH, Sk] through theirs; the
+// segment ids [B, Sq] and [B, Sk] int32. bf16 or float32 in, outputs in
+// the input type.
 //
 // What bounds it on this card: operations. Causal attention at the LLaMA
 // step's shape (B 4, S 2048, H 32, D 128) does 4*B*H*S^2*D/2 = 1.37e11
@@ -47,15 +64,18 @@
 // rather than HBM become the limit. Mistral's 4096-key window at S 8192
 // keeps 25.2M of the 33.6M causal (row, key) pairs of a head; K6, K2 and
 // K3 skip the tiles outside the band, so their bound counts live pairs.
+// The dropout hash costs about 20 integer operations a score, beside the
+// 4 D flops of the products.
 //
 // What the design does about that: every intermediate stays out of
-// device memory (scores, probabilities and the online-softmax state live
-// in shared memory and registers; only q/k/v/o/lse/delta, the mask, the
-// bands and the gradients touch HBM), tiles that causality or the first
-// band kill are skipped before their K/V (or Q/dO) are loaded, and K/V
-// stay at their own head count (never repeated in memory; K3 reads a kv
-// tile once for its whole GQA group, and takes each query head's own band
-// and mask row). Two forms of each kernel, chosen by dtype and head_dim:
+// device memory (scores, probabilities, keep masks and the online-softmax
+// state live in shared memory and registers; only q/k/v/o/lse/delta, the
+// mask, the bands, the segment ids and the gradients touch HBM), tiles
+// that causality, the first band or the segment ids kill are skipped
+// before their K/V (or Q/dO) are loaded, and K/V stay at their own head
+// count (never repeated in memory; K3 reads a kv tile once for its whole
+// GQA group, and takes each query head's own band and mask row). Two forms
+// of each kernel, chosen by dtype and head_dim:
 //   - bf16 at head_dim 64 or 128 (the training path): the products run
 //     on the tensor cores through mma.sync (bf16 in, float32 accumulate),
 //     four warps of 16 rows each;
@@ -123,6 +143,16 @@ __device__ __forceinline__ long long row_off(int b, int s, int h, int S,
 
 // -- masking -----------------------------------------------------------------
 
+// The compile-time arms of a kernel. kArmMask: the additive mask and the
+// bands (K6 always, K2/K3 when given either); kArmSeg: segment ids;
+// kArmDrop: the counter-hash dropout (K1, K2, K3; never with kArmMask).
+constexpr int kArmMask = 1, kArmSeg = 2, kArmDrop = 4;
+
+// An arm that tests each tile block-wide (dead / interior).
+__host__ __device__ constexpr bool tile_tested(int arm) {
+  return (arm & (kArmMask | kArmSeg)) != 0;
+}
+
 struct Mask {
   int causal;
   int offset;        // Sk - Sq: query row r sees keys c <= r + offset
@@ -131,6 +161,8 @@ struct Mask {
   const int* fm;     // n_fm / 2 bands of (start, end) rows [MB, MH, Sk]
   int n_fm;          // 0, 2 or 4
   long long f_band, f_b, f_h;    // the bands' strides, 0 over a broadcast
+  const int* qseg;   // segment ids [B, Sq] int32, or null
+  const int* kseg;   // segment ids [B, Sk] int32 (with qseg)
 };
 
 struct Params {
@@ -141,27 +173,56 @@ struct Params {
   int B, Sq, Sk, H, HKV;
   float scale;
   Mask mk;
+  uint32_t seed;      // dropout (kArmDrop): the seed's 32 bits,
+  uint32_t keep_min;  // the threshold a kept link's hash reaches,
+  float keep_scale;   // and float32(1 / (1 - p))
 };
+
+// _keep_scale of _fa_kernel.py for the link of query row r and key c of
+// flat head bh = b * H + h (the query head's): keep_scale where kept, else
+// 0. uint32 arithmetic wraps as the TPU's int32 does; its masked
+// arithmetic shifts are the logical shifts here.
+__device__ __forceinline__ float keep_of(const Params& p, int bh, int r,
+                                         int c) {
+  uint32_t x = static_cast<uint32_t>(r) * 0x9E3779B1u ^
+               static_cast<uint32_t>(c) * 0x85EBCA77u ^
+               static_cast<uint32_t>(bh) * 0xC2B2AE3Du ^ p.seed;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    x ^= x >> 16;
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 16;
+  }
+  return x >= p.keep_min ? p.keep_scale : 0.f;
+}
 
 // The one masking preamble of K1, K6, K2 and K3 (the TPU file's
 // _masked_scores): the scaled score s of query row r against key c of
 // head h of batch b, or -inf where that pair is masked. cl = c - k0 indexes
-// the bands of the key's tile staged in `bands` ([n_fm][BK], kMasked
+// the bands of the key's tile staged in `bands` ([n_fm][BK], kArmMask
 // only). Rows past Sq and keys past Sk are masked; then causal with the
 // diagonal at Sk - Sq; then each band [start, end) of column c; then the
-// additive mask is added.
-template <bool kMasked, int BK>
+// additive mask is added; then the segment ids must be equal and
+// non-negative.
+template <int kArm, int BK>
 __device__ __forceinline__ float mask_score(const Mask& mk, const int* bands,
                                             float s, int b, int h, int r,
                                             int c, int cl, int Sq, int Sk) {
   if (r >= Sq || c >= Sk || (mk.causal && c > r + mk.offset))
     return -INFINITY;
-  if (kMasked) {
+  if (kArm & kArmMask) {
     for (int i = 0; i < mk.n_fm; i += 2)
       if (r >= bands[i * BK + cl] && r < bands[(i + 1) * BK + cl])
         return -INFINITY;
     if (mk.add != nullptr)
       s += mk.add[b * mk.a_b + h * mk.a_h + r * mk.a_r + c * mk.a_c];
+  }
+  if (kArm & kArmSeg) {
+    const int qs = mk.qseg[static_cast<long long>(b) * Sq + r];
+    if (qs < 0 || qs != mk.kseg[static_cast<long long>(b) * Sk + c])
+      return -INFINITY;
   }
   return s;
 }
@@ -179,16 +240,18 @@ __device__ __forceinline__ void stage_bands(int* dst, const Mask& mk, int b,
   }
 }
 
-// A tile's two block-wide tests in a masked arm, for the q rows [q0, q1)
+// A tile's two block-wide tests in a tested arm, for the q rows [q0, q1)
 // against the keys [k0, k0 + BK). Each thread starts from the neutral
 // values tile_flags gives and thread cl < BK folds in key k0 + cl through
 // key_flags; __syncthreads_and then combines them:
-//   dead: the first band of every key covers all the rows (the TPU
-//     kernel's test, _fa_kernel.py:320-328; a second band only masks
-//     more), so the tile is skipped;
+//   dead: every key is dead for all the rows, because its first band
+//     covers them (the TPU kernel's test, _fa_kernel.py:320-328; a second
+//     band only masks more) or because no row shares its segment id (a
+//     per-key form of the TPU's min/max overlap test, :312-318, that
+//     assumes no order of the ids), so the tile is skipped;
 //   interior: no band of any key meets the rows, no additive mask, every
-//     row and key in range and causally visible, so the scores need no
-//     masking at all.
+//     row and key in range and causally visible, and every row's id equal
+//     to every key's, non-negative: the scores need no masking at all.
 struct TileFlags {
   bool cover, clear;
 };
@@ -196,54 +259,95 @@ struct TileFlags {
 __device__ __forceinline__ TileFlags tile_flags(const Mask& mk, int q0, int q1,
                                                 int BQ, int k0, int BK,
                                                 int Sk) {
-  return TileFlags{mk.n_fm > 0,
+  return TileFlags{mk.n_fm > 0 || mk.qseg != nullptr,
                    mk.add == nullptr && q1 == q0 + BQ && k0 + BK <= Sk &&
                        (!mk.causal || k0 + BK - 1 <= q0 + mk.offset)};
 }
 
-// Key k0 + cl's part: kb points at its first band's start, the band values
-// `stride` apart. An end of INT_MAX (the C=1 form) is compared, never added
-// to. A key past Sk is covered and not clear.
-__device__ __forceinline__ void key_flags(TileFlags& fl, const int* kb,
-                                          int stride, int n_fm, bool past,
-                                          int q0, int q1) {
-  if (past) {
+// The least and greatest segment id of the q rows [q0, q1) of batch b
+// (kArmSeg only), each warp reducing them on its own, so no barrier: K1,
+// K6 and K2 take it once per block, K3 once per q tile.
+struct QSpan {
+  int lo, hi;
+};
+
+template <int kArm>
+__device__ __forceinline__ QSpan q_span(const Mask& mk, int b, int q0, int q1,
+                                        int Sq) {
+  if (!(kArm & kArmSeg)) return QSpan{0, 0};
+  const int* qs = mk.qseg + static_cast<long long>(b) * Sq;
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int r = q0 + threadIdx.x % 32; r < q1; r += 32) {
+    lo = min(lo, qs[r]);
+    hi = max(hi, qs[r]);
+  }
+  return QSpan{__reduce_min_sync(0xffffffffu, lo),
+               __reduce_max_sync(0xffffffffu, hi)};
+}
+
+// Key c = k0 + cl's part: kb points at its first band's start in the
+// staged bands, the band values `stride` apart. An end of INT_MAX (the C=1
+// form) is compared, never added to. A key past Sk is covered and not
+// clear. The segment test decides from the rows' span qsp alone when the
+// key's id lies outside it or every row shares one id (a padded batch, a
+// tile inside one document); only a key inside a mixed span reads the
+// rows' ids, up to the first that matches.
+__device__ __forceinline__ void key_flags(TileFlags& fl, const Mask& mk,
+                                          const int* kb, int stride, int b,
+                                          int c, int q0, int q1, int Sq,
+                                          int Sk, QSpan qsp) {
+  if (c >= Sk) {
     fl.clear = false;
     return;
   }
-  fl.cover = n_fm > 0 && kb[0] <= q0 && kb[stride] >= q1;
-  for (int i = 0; i < n_fm; i += 2) {
+  fl.cover = mk.n_fm > 0 && kb[0] <= q0 && kb[stride] >= q1;
+  for (int i = 0; i < mk.n_fm; i += 2) {
     const int st = kb[i * stride], en = kb[(i + 1) * stride];
     fl.clear = fl.clear && (st >= q1 || en <= q0 || st >= en);
   }
+  if (mk.qseg != nullptr) {
+    const int ks = mk.kseg[static_cast<long long>(b) * Sk + c];
+    const bool inside = ks >= qsp.lo && ks <= qsp.hi;
+    const bool all = inside && qsp.lo == qsp.hi && ks >= 0;
+    bool any = inside && qsp.lo == qsp.hi;
+    if (inside && !any) {
+      const int* qs = mk.qseg + static_cast<long long>(b) * Sq;
+      for (int r = q0; r < q1 && !any; ++r) any = qs[r] == ks;
+    }
+    fl.cover = fl.cover || ks < 0 || !any;
+    fl.clear = fl.clear && all;
+  }
 }
 
-// The forward's and K2's per-tile staging in a masked arm: thread cl < BK
+// The forward's and K2's per-tile staging in a tested arm: thread cl < BK
 // stages the bands of key k0 + cl into bands[i * BK + cl] and folds in its
 // flags. Published (with the flags) by the caller's __syncthreads_and.
 template <int BK>
-__device__ __forceinline__ TileFlags stage_key_bands(int* bands, const Mask& mk,
-                                                     int b, int h, int k0,
+__device__ __forceinline__ TileFlags stage_key_flags(int* bands,
+                                                     const Mask& mk, int b,
+                                                     int h, int k0, int Sq,
                                                      int Sk, int q0, int q1,
-                                                     int BQ) {
+                                                     int BQ, QSpan qsp) {
   TileFlags fl = tile_flags(mk, q0, q1, BQ, k0, BK, Sk);
   const int cl = threadIdx.x;
-  if (cl < BK && mk.n_fm > 0) {
+  if (cl < BK) {
     const int c = k0 + cl;
-    const int* f = mk.fm + b * mk.f_b + h * mk.f_h + c;
-    for (int i = 0; i < mk.n_fm; ++i)
-      bands[i * BK + cl] =
-          c < Sk ? f[i * mk.f_band] : (i % 2 == 0 ? INT_MIN : INT_MAX);
-    key_flags(fl, bands + cl, BK, mk.n_fm, c >= Sk, q0, q1);
+    if (mk.n_fm > 0) {
+      const int* f = mk.fm + b * mk.f_b + h * mk.f_h + c;
+      for (int i = 0; i < mk.n_fm; ++i)
+        bands[i * BK + cl] =
+            c < Sk ? f[i * mk.f_band] : (i % 2 == 0 ? INT_MIN : INT_MAX);
+    }
+    key_flags(fl, mk, bands + cl, BK, b, c, q0, q1, Sq, Sk, qsp);
   }
   return fl;
 }
 
-// The barrier after a tile's operands are staged; in a masked arm it also
+// The barrier after a tile's operands are staged; in a tested arm it also
 // says whether the tile is interior (the block-wide AND of `clear`).
-template <bool kMasked>
+template <int kArm>
 __device__ __forceinline__ bool sync_interior(bool clear) {
-  if (kMasked) return __syncthreads_and(clear);
+  if (tile_tested(kArm)) return __syncthreads_and(clear);
   __syncthreads();
   return false;
 }
@@ -284,8 +388,8 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch,
 // -- K1 and K6: forward ------------------------------------------------------
 // One block per (q tile, head, batch), looping over the live k tiles.
 // Thread (ty, tx) owns query rows ty + 16 i, key columns tx + 16 j of each
-// score tile, and output columns tx + 16 e. kMasked = K6.
-template <typename T, int D, bool kMasked>
+// score tile, and output columns tx + 16 e. kArm with kArmMask = K6.
+template <typename T, int D, int kArm>
 __device__ __forceinline__ void fwd_core(const Params& p) {
   constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK;
   constexpr int RI = BQ / 16, CJ = BK / 16, E = D / 16;
@@ -317,18 +421,20 @@ __device__ __forceinline__ void fwd_core(const Params& p) {
     for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
   }
 
+  const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
   const int n_kt = k_tiles(p.mk, q1, BK, Sk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the last tile's readers are done
     TileFlags fl{false, false};
-    if (kMasked) {
-      fl = stage_key_bands<BK>(bands, p.mk, b, h, k0, Sk, q0, q1, BQ);
+    if (tile_tested(kArm)) {
+      fl = stage_key_flags<BK>(bands, p.mk, b, h, k0, Sq, Sk, q0, q1, BQ,
+                               qsp);
       if (__syncthreads_and(fl.cover)) continue;  // a dead tile
     }
     load_rows<T, D, BK, true>(Kt, KP, k, b, k0, hk, Sk, HKV, 1.f);
     load_rows<T, D, BK, false>(Vs, D, v, b, k0, hk, Sk, HKV, 1.f);
-    const bool interior = sync_interior<kMasked>(fl.clear);
+    const bool interior = sync_interior<kArm>(fl.clear);
 
     float s[RI][CJ];
 #pragma unroll
@@ -356,8 +462,8 @@ __device__ __forceinline__ void fwd_core(const Params& p) {
       for (int j = 0; j < CJ; ++j) {
         const int cl = tx + 16 * j;
         if (!interior)
-          s[i][j] = mask_score<kMasked, BK>(p.mk, bands, s[i][j], b, h, r,
-                                            k0 + cl, cl, Sq, Sk);
+          s[i][j] = mask_score<kArm, BK>(p.mk, bands, s[i][j], b, h, r,
+                                         k0 + cl, cl, Sq, Sk);
         mb = fmaxf(mb, s[i][j]);
       }
       mb = row_max16(mb);
@@ -368,7 +474,10 @@ __device__ __forceinline__ void fwd_core(const Params& p) {
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const float pr = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - ms);
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = pr;
+        // l sums the undropped p; p V takes the kept links
+        Ps[(ty + 16 * i) * PP + tx + 16 * j] =
+            (kArm & kArmDrop) ? pr * keep_of(p, b * H + h, r, k0 + tx + 16 * j)
+                              : pr;
         ps += pr;
       }
       l[i] = l[i] * corr + ps;
@@ -407,22 +516,22 @@ __device__ __forceinline__ void fwd_core(const Params& p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int kArm>
 __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
-  fwd_core<T, D, false>(p);
+  fwd_core<T, D, kArm>(p);
 }
 
-template <typename T, int D>
+template <typename T, int D, int kArm>
 __global__ void __launch_bounds__(kThreads)
     fa_fwd_stream_kernel(const Params p) {
-  fwd_core<T, D, true>(p);
+  fwd_core<T, D, kArm>(p);
 }
 
 // -- K2: dq ------------------------------------------------------------------
 // One block per (q tile, head, batch), over the live k tiles. Thread (ty,
 // tx) owns rows ty + 16 i, key columns tx + 16 j and dq columns tx + 16 e;
 // dq is accumulated in float32 and cast on store.
-template <typename T, int D, bool kMasked>
+template <typename T, int D, int kArm>
 __global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(const Params p) {
   constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK;
   constexpr int RI = BQ / 16, CJ = BK / 16, E = D / 16;
@@ -459,18 +568,20 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(const Params p) {
     for (int e = 0; e < E; ++e) dqa[i][e] = 0.f;
   }
 
+  const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
   const int n_kt = k_tiles(p.mk, q1, BK, Sk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
     TileFlags fl{false, false};
-    if (kMasked) {
-      fl = stage_key_bands<BK>(bands, p.mk, b, h, k0, Sk, q0, q1, BQ);
+    if (tile_tested(kArm)) {
+      fl = stage_key_flags<BK>(bands, p.mk, b, h, k0, Sq, Sk, q0, q1, BQ,
+                               qsp);
       if (__syncthreads_and(fl.cover)) continue;  // a dead tile
     }
     load_rows<T, D, BK, true>(Kt, KP, k, b, k0, hk, Sk, HKV, 1.f);
     load_rows<T, D, BK, true>(Vt, KP, v, b, k0, hk, Sk, HKV, 1.f);
-    const bool interior = sync_interior<kMasked>(fl.clear);
+    const bool interior = sync_interior<kArm>(fl.clear);
 
     float s[RI][CJ], dp[RI][CJ];
 #pragma unroll
@@ -506,11 +617,14 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(const Params p) {
         const int cl = tx + 16 * j;
         const float sc = s[i][j] * p.scale;
         const float x = interior ? sc
-                                 : mask_score<kMasked, BK>(p.mk, bands, sc, b,
-                                                           h, r, k0 + cl, cl,
-                                                           Sq, Sk);
+                                 : mask_score<kArm, BK>(p.mk, bands, sc, b, h,
+                                                        r, k0 + cl, cl, Sq,
+                                                        Sk);
         const float pr = isfinite(x) ? expf(x - lse_r[i]) : 0.f;
-        dSs[(ty + 16 * i) * PP + cl] = pr * (dp[i][j] - del_r[i]);
+        const float dpk = (kArm & kArmDrop)
+                              ? dp[i][j] * keep_of(p, b * H + h, r, k0 + cl)
+                              : dp[i][j];
+        dSs[(ty + 16 * i) * PP + cl] = pr * (dpk - del_r[i]);
       }
     }
     __syncthreads();
@@ -547,7 +661,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(const Params p) {
 // query head of the group reads its own band and mask rows. Thread (ty, tx)
 // owns key rows ty + 16 j, query columns tx + 16 i of each score tile and
 // dk/dv columns tx + 16 e.
-template <typename T, int D, bool kMasked>
+template <typename T, int D, int kArm>
 __global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
   constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK;
   constexpr int RI = BQ / 16, CJ = BK / 16, E = D / 16;
@@ -587,7 +701,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const long long st = (static_cast<long long>(b) * H + h) * Sq;
-    if (kMasked && p.mk.n_fm > 0) {
+    if ((kArm & kArmMask) && p.mk.n_fm > 0) {
       __syncthreads();  // the last head's readers of the bands are done
       stage_bands<BK, kThreads>(bands, p.mk, b, h, k0, Sk);
       __syncthreads();
@@ -595,11 +709,13 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * BQ, q1 = min(q0 + BQ, Sq);
       TileFlags fl{false, false};
-      if (kMasked) {
+      if (tile_tested(kArm)) {
         fl = tile_flags(p.mk, q0, q1, BQ, k0, BK, Sk);
+        const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
         const int cl = threadIdx.x;
         if (cl < BK)
-          key_flags(fl, bands + cl, BK, p.mk.n_fm, k0 + cl >= Sk, q0, q1);
+          key_flags(fl, p.mk, bands + cl, BK, b, k0 + cl, q0, q1, Sq, Sk,
+                    qsp);
         // also the barrier after the last q tile's readers
         if (__syncthreads_and(fl.cover)) continue;  // a dead tile
       } else {
@@ -611,7 +727,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
         lse_s[r] = q0 + r < Sq ? p.lse_in[st + q0 + r] : 0.f;
         del_s[r] = q0 + r < Sq ? p.delta[st + q0 + r] : 0.f;
       }
-      const bool interior = sync_interior<kMasked>(fl.clear);
+      const bool interior = sync_interior<kArm>(fl.clear);
 
       float s[CJ][RI], dp[CJ][RI];
 #pragma unroll
@@ -648,11 +764,16 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
           const float sc = s[j][i] * p.scale;
           const float x =
               interior ? sc
-                       : mask_score<kMasked, BK>(p.mk, bands, sc, b, h,
-                                                 q0 + rl, k0 + cl, cl, Sq, Sk);
+                       : mask_score<kArm, BK>(p.mk, bands, sc, b, h, q0 + rl,
+                                              k0 + cl, cl, Sq, Sk);
           const float pr = isfinite(x) ? expf(x - lse_s[rl]) : 0.f;
-          Pt[cl * QTP + rl] = pr;
-          dSt[cl * QTP + rl] = pr * (dp[j][i] - del_s[rl]);
+          // the query head's own b * H + h, as _fa_kernel.py:676-679
+          const float ks =
+              (kArm & kArmDrop) ? keep_of(p, b * H + h, q0 + rl, k0 + cl) : 1.f;
+          Pt[cl * QTP + rl] = (kArm & kArmDrop) ? pr * ks : pr;
+          dSt[cl * QTP + rl] =
+              pr * (((kArm & kArmDrop) ? dp[j][i] * ks : dp[j][i]) -
+                    del_s[rl]);
         }
       }
       __syncthreads();
@@ -801,7 +922,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 constexpr int kMmaBQ = 64, kMmaBK = 64, kMmaBQ3 = 32;
 
-template <int D, bool kMasked>
+template <int D, int kArm>
 __device__ __forceinline__ void fwd_mma(const Params& p) {
   constexpr int BQ = kMmaBQ, BK = kMmaBK, LD = D + 8, LDT = BK + 8;
   constexpr int KS = D / 16, NK = BK / 8, ND = D / 8;
@@ -835,18 +956,20 @@ __device__ __forceinline__ void fwd_mma(const Params& p) {
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
+  const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
   const int n_kt = k_tiles(p.mk, q1, BK, Sk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
     TileFlags fl{false, false};
-    if (kMasked) {
-      fl = stage_key_bands<BK>(bands, p.mk, b, h, k0, Sk, q0, q1, BQ);
+    if (tile_tested(kArm)) {
+      fl = stage_key_flags<BK>(bands, p.mk, b, h, k0, Sq, Sk, q0, q1, BQ,
+                               qsp);
       if (__syncthreads_and(fl.cover)) continue;  // a dead tile
     }
     stage<D, BK, false>(Ks, k, b, k0, hk, Sk, HKV);
     stage<D, BK, true>(Vt, v, b, k0, hk, Sk, HKV);
-    const bool interior = sync_interior<kMasked>(fl.clear);
+    const bool interior = sync_interior<kArm>(fl.clear);
 
     float s[NK][4];
 #pragma unroll
@@ -863,9 +986,9 @@ __device__ __forceinline__ void fwd_mma(const Params& p) {
         const float sc = s[j][e] * scale;
         const float x =
             interior ? sc
-                     : mask_score<kMasked, BK>(p.mk, bands, sc, b, h,
-                                               e < 2 ? r0 : r1, k0 + cl, cl,
-                                               Sq, Sk);
+                     : mask_score<kArm, BK>(p.mk, bands, sc, b, h,
+                                            e < 2 ? r0 : r1, k0 + cl, cl, Sq,
+                                            Sk);
         s[j][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
       }
@@ -880,7 +1003,11 @@ __device__ __forceinline__ void fwd_mma(const Params& p) {
       for (int e = 0; e < 4; ++e) {
         const float x = s[j][e];
         const float pr = x == -INFINITY ? 0.f : expf(x - (e < 2 ? ms0 : ms1));
-        s[j][e] = pr;
+        // l sums the undropped p; p V takes the kept links
+        s[j][e] = (kArm & kArmDrop)
+                      ? pr * keep_of(p, b * H + h, e < 2 ? r0 : r1,
+                                     k0 + j * 8 + 2 * t + (e & 1))
+                      : pr;
         if (e < 2) ps0 += pr; else ps1 += pr;
       }
     l0 = l0 * corr0 + ps0;
@@ -921,19 +1048,19 @@ __device__ __forceinline__ void fwd_mma(const Params& p) {
   }
 }
 
-template <int D>
+template <int D, int kArm>
 __global__ void __launch_bounds__(kMmaThreads)
     fa_fwd_mma_kernel(const Params p) {
-  fwd_mma<D, false>(p);
+  fwd_mma<D, kArm>(p);
 }
 
-template <int D>
+template <int D, int kArm>
 __global__ void __launch_bounds__(kMmaThreads)
     fa_fwd_stream_mma_kernel(const Params p) {
-  fwd_mma<D, true>(p);
+  fwd_mma<D, kArm>(p);
 }
 
-template <int D, bool kMasked>
+template <int D, int kArm>
 __global__ void __launch_bounds__(kMmaThreads)
     fa_bwd_dq_mma_kernel(const Params p) {
   constexpr int BQ = kMmaBQ, BK = kMmaBK, LD = D + 8, LDT = BK + 8;
@@ -974,19 +1101,21 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int n = 0; n < ND; ++n)
     dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
+  const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
   const int n_kt = k_tiles(p.mk, q1, BK, Sk);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
     TileFlags fl{false, false};
-    if (kMasked) {
-      fl = stage_key_bands<BK>(bands, p.mk, b, h, k0, Sk, q0, q1, BQ);
+    if (tile_tested(kArm)) {
+      fl = stage_key_flags<BK>(bands, p.mk, b, h, k0, Sq, Sk, q0, q1, BQ,
+                               qsp);
       if (__syncthreads_and(fl.cover)) continue;  // a dead tile
     }
     stage<D, BK, false>(Ks, k, b, k0, hk, Sk, HKV);
     stage<D, BK, false>(Vs, v, b, k0, hk, Sk, HKV);
     stage<D, BK, true>(Kt, k, b, k0, hk, Sk, HKV);
-    const bool interior = sync_interior<kMasked>(fl.clear);
+    const bool interior = sync_interior<kArm>(fl.clear);
 
     float s[NK][4], dp[NK][4];
 #pragma unroll
@@ -1009,11 +1138,15 @@ __global__ void __launch_bounds__(kMmaThreads)
         const float sc = s[j][e] * scale;
         const float x =
             interior ? sc
-                     : mask_score<kMasked, BK>(p.mk, bands, sc, b, h,
-                                               e < 2 ? r0 : r1, k0 + cl, cl,
-                                               Sq, Sk);
+                     : mask_score<kArm, BK>(p.mk, bands, sc, b, h,
+                                            e < 2 ? r0 : r1, k0 + cl, cl, Sq,
+                                            Sk);
         const float pr = isfinite(x) ? expf(x - (e < 2 ? lse0 : lse1)) : 0.f;
-        s[j][e] = pr * (dp[j][e] - (e < 2 ? del0 : del1));  // ds
+        const float dpk =
+            (kArm & kArmDrop)
+                ? dp[j][e] * keep_of(p, b * H + h, e < 2 ? r0 : r1, k0 + cl)
+                : dp[j][e];
+        s[j][e] = pr * (dpk - (e < 2 ? del0 : del1));  // ds
       }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -1043,7 +1176,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 // computes the transposed scores s^T = K Q^T of its keys against a 32-row
 // q tile, looping over the G query heads (each with its own band and mask
 // rows) and the live q tiles from the diagonal on, dk and dv in registers.
-template <int D, bool kMasked>
+template <int D, int kArm>
 __global__ void __launch_bounds__(kMmaThreads)
     fa_bwd_dkv_mma_kernel(const Params p) {
   constexpr int BQ = kMmaBQ3, BK = kMmaBK, LD = D + 8, LDT = BQ + 8;
@@ -1088,7 +1221,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
     const long long st = (static_cast<long long>(b) * H + h) * Sq;
-    if (kMasked && p.mk.n_fm > 0) {
+    if ((kArm & kArmMask) && p.mk.n_fm > 0) {
       __syncthreads();  // the last head's readers of the bands are done
       stage_bands<BK, kMmaThreads>(bands, p.mk, b, h, k0, Sk);
       __syncthreads();
@@ -1096,11 +1229,13 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * BQ, q1 = min(q0 + BQ, Sq);
       TileFlags fl{false, false};
-      if (kMasked) {
+      if (tile_tested(kArm)) {
         fl = tile_flags(p.mk, q0, q1, BQ, k0, BK, Sk);
+        const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
         const int cl = threadIdx.x;
         if (cl < BK)
-          key_flags(fl, bands + cl, BK, p.mk.n_fm, k0 + cl >= Sk, q0, q1);
+          key_flags(fl, p.mk, bands + cl, BK, b, k0 + cl, q0, q1, Sq, Sk,
+                    qsp);
         // also the barrier after the last q tile's readers
         if (__syncthreads_and(fl.cover)) continue;  // a dead tile
       } else {
@@ -1114,7 +1249,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         lse_s[r] = q0 + r < Sq ? p.lse_in[st + q0 + r] : 0.f;
         del_s[r] = q0 + r < Sq ? p.delta[st + q0 + r] : 0.f;
       }
-      const bool interior = sync_interior<kMasked>(fl.clear);
+      const bool interior = sync_interior<kArm>(fl.clear);
 
       float s[NQ][4], dp[NQ][4];  // s^T and dp^T: rows keys, columns q
 #pragma unroll
@@ -1138,11 +1273,18 @@ __global__ void __launch_bounds__(kMmaThreads)
           const float sc = s[j][e] * scale;
           const float x =
               interior ? sc
-                       : mask_score<kMasked, BK>(p.mk, bands, sc, b, h,
-                                                 q0 + ql, c, c - k0, Sq, Sk);
+                       : mask_score<kArm, BK>(p.mk, bands, sc, b, h, q0 + ql,
+                                              c, c - k0, Sq, Sk);
           const float pr = isfinite(x) ? expf(x - lse_s[ql]) : 0.f;
-          s[j][e] = pr;
-          dp[j][e] = pr * (dp[j][e] - del_s[ql]);  // ds^T
+          if (kArm & kArmDrop) {
+            // the query head's own b * H + h, as _fa_kernel.py:676-679
+            const float ks = keep_of(p, b * H + h, q0 + ql, c);
+            s[j][e] = pr * ks;
+            dp[j][e] = pr * (dp[j][e] * ks - del_s[ql]);  // ds^T
+          } else {
+            s[j][e] = pr;
+            dp[j][e] = pr * (dp[j][e] - del_s[ql]);  // ds^T
+          }
         }
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
@@ -1181,45 +1323,47 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // -- launches ----------------------------------------------------------------
 
-// The bands' shared memory of a masked arm: up to 4 rows of BK ints.
-constexpr int band_smem(int bk, bool masked) { return masked ? 16 * bk : 0; }
+// The bands' shared memory of a kArmMask arm: up to 4 rows of BK ints.
+constexpr int band_smem(int bk, int arm) {
+  return (arm & kArmMask) ? 16 * bk : 0;
+}
 
 template <int D>
-constexpr int fwd_smem(bool masked) {
+constexpr int fwd_smem(int arm) {
   return 4 * (Tile<D>::BQ * (D + 1) + D * (Tile<D>::BK + 1) +
               Tile<D>::BK * D + Tile<D>::BQ * (Tile<D>::BK + 1)) +
-         band_smem(Tile<D>::BK, masked);
+         band_smem(Tile<D>::BK, arm);
 }
 template <int D>
-constexpr int dq_smem(bool masked) {
+constexpr int dq_smem(int arm) {
   return 4 * (2 * Tile<D>::BQ * (D + 1) + 2 * D * (Tile<D>::BK + 1) +
               Tile<D>::BQ * (Tile<D>::BK + 1)) +
-         band_smem(Tile<D>::BK, masked);
+         band_smem(Tile<D>::BK, arm);
 }
 template <int D>
-constexpr int dkv_smem(bool masked) {
+constexpr int dkv_smem(int arm) {
   return 4 * (2 * Tile<D>::BK * (D + 1) + 2 * D * (Tile<D>::BQ + 1) +
               2 * Tile<D>::BK * (Tile<D>::BQ + 1) + 2 * Tile<D>::BQ) +
-         band_smem(Tile<D>::BK, masked);
+         band_smem(Tile<D>::BK, arm);
 }
 template <int D>
-constexpr int fwd_mma_smem(bool masked) {
+constexpr int fwd_mma_smem(int arm) {
   return 2 * ((kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8)) +
-         band_smem(kMmaBK, masked);
+         band_smem(kMmaBK, arm);
 }
 template <int D>
-constexpr int dq_mma_smem(bool masked) {
+constexpr int dq_mma_smem(int arm) {
   return 2 * (2 * (kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8)) +
-         band_smem(kMmaBK, masked);
+         band_smem(kMmaBK, arm);
 }
 template <int D>
-constexpr int dkv_mma_smem(bool masked) {
+constexpr int dkv_mma_smem(int arm) {
   return 2 * (2 * (kMmaBK + kMmaBQ3) * (D + 8) + 2 * D * (kMmaBQ3 + 8)) +
-         4 * 2 * kMmaBQ3 + band_smem(kMmaBK, masked);
+         4 * 2 * kMmaBQ3 + band_smem(kMmaBK, arm);
 }
 
-// K1 and K6 are the two forward kernels; K2 and K3 take their masked arm
-// when there is a mask or a band.
+// K1 and K6 are the two forward kernels; K2 and K3 take the arm of their
+// call.
 enum Which { kFwd = 0, kStream = 1, kDq = 2, kDkv = 3 };
 
 // Set the kernel's dynamic shared memory, launch, and return
@@ -1236,112 +1380,144 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem,
 
 int tiles(int n, int tile) { return (n + tile - 1) / tile; }
 
-// The CUDA-core kernels: float32, and bf16 at head_dim 256.
-template <typename T, int D>
-int launch_core(const Params& p, int which, bool masked,
-                cudaStream_t stream) {
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+// The CUDA-core kernels in arm kArm: float32, and bf16 at head_dim 256.
+// Only the arms a kernel takes are compiled: K1 without kArmMask, K6 with
+// it and without kArmDrop.
+template <typename T, int D, int kArm>
+int launch_core(const Params& p, int which, cudaStream_t stream) {
   const dim3 qgrid(tiles(p.Sq, Tile<D>::BQ), p.H, p.B);
   const dim3 kgrid(tiles(p.Sk, Tile<D>::BK), p.HKV, p.B);
-  switch (which) {
-    case kFwd:
-      return launch(fa_fwd_kernel<T, D>, qgrid, kThreads, fwd_smem<D>(false),
-                    stream, p);
-    case kStream:
-      return launch(fa_fwd_stream_kernel<T, D>, qgrid, kThreads,
-                    fwd_smem<D>(true), stream, p);
-    case kDq:
-      return masked ? launch(fa_bwd_dq_kernel<T, D, true>, qgrid, kThreads,
-                             dq_smem<D>(true), stream, p)
-                    : launch(fa_bwd_dq_kernel<T, D, false>, qgrid, kThreads,
-                             dq_smem<D>(false), stream, p);
-    case kDkv:
-      return masked ? launch(fa_bwd_dkv_kernel<T, D, true>, kgrid, kThreads,
-                             dkv_smem<D>(true), stream, p)
-                    : launch(fa_bwd_dkv_kernel<T, D, false>, kgrid, kThreads,
-                             dkv_smem<D>(false), stream, p);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (!(kArm & kArmMask)) {
+    if (which == kFwd)
+      return launch(fa_fwd_kernel<T, D, kArm>, qgrid, kThreads,
+                    fwd_smem<D>(kArm), stream, p);
   }
+  if constexpr ((kArm & kArmMask) && !(kArm & kArmDrop)) {
+    if (which == kStream)
+      return launch(fa_fwd_stream_kernel<T, D, kArm>, qgrid, kThreads,
+                    fwd_smem<D>(kArm), stream, p);
+  }
+  if (which == kDq)
+    return launch(fa_bwd_dq_kernel<T, D, kArm>, qgrid, kThreads,
+                  dq_smem<D>(kArm), stream, p);
+  if (which == kDkv)
+    return launch(fa_bwd_dkv_kernel<T, D, kArm>, kgrid, kThreads,
+                  dkv_smem<D>(kArm), stream, p);
+  return kInvalid;
 }
 
-// The tensor-core kernels: bf16 at head_dim 64 and 128.
-template <int D>
-int launch_mma(const Params& p, int which, bool masked, cudaStream_t stream) {
+// The tensor-core kernels in arm kArm: bf16 at head_dim 64 and 128.
+template <int D, int kArm>
+int launch_mma(const Params& p, int which, cudaStream_t stream) {
   const dim3 qgrid(tiles(p.Sq, kMmaBQ), p.H, p.B);
   const dim3 kgrid(tiles(p.Sk, kMmaBK), p.HKV, p.B);
-  switch (which) {
-    case kFwd:
-      return launch(fa_fwd_mma_kernel<D>, qgrid, kMmaThreads,
-                    fwd_mma_smem<D>(false), stream, p);
-    case kStream:
-      return launch(fa_fwd_stream_mma_kernel<D>, qgrid, kMmaThreads,
-                    fwd_mma_smem<D>(true), stream, p);
-    case kDq:
-      return masked ? launch(fa_bwd_dq_mma_kernel<D, true>, qgrid,
-                             kMmaThreads, dq_mma_smem<D>(true), stream, p)
-                    : launch(fa_bwd_dq_mma_kernel<D, false>, qgrid,
-                             kMmaThreads, dq_mma_smem<D>(false), stream, p);
-    case kDkv:
-      return masked ? launch(fa_bwd_dkv_mma_kernel<D, true>, kgrid,
-                             kMmaThreads, dkv_mma_smem<D>(true), stream, p)
-                    : launch(fa_bwd_dkv_mma_kernel<D, false>, kgrid,
-                             kMmaThreads, dkv_mma_smem<D>(false), stream, p);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (!(kArm & kArmMask)) {
+    if (which == kFwd)
+      return launch(fa_fwd_mma_kernel<D, kArm>, qgrid, kMmaThreads,
+                    fwd_mma_smem<D>(kArm), stream, p);
   }
+  if constexpr ((kArm & kArmMask) && !(kArm & kArmDrop)) {
+    if (which == kStream)
+      return launch(fa_fwd_stream_mma_kernel<D, kArm>, qgrid, kMmaThreads,
+                    fwd_mma_smem<D>(kArm), stream, p);
+  }
+  if (which == kDq)
+    return launch(fa_bwd_dq_mma_kernel<D, kArm>, qgrid, kMmaThreads,
+                  dq_mma_smem<D>(kArm), stream, p);
+  if (which == kDkv)
+    return launch(fa_bwd_dkv_mma_kernel<D, kArm>, kgrid, kMmaThreads,
+                  dkv_mma_smem<D>(kArm), stream, p);
+  return kInvalid;
 }
 
-int dispatch(const Params& p, int head_dim, int dtype, int which,
+// One form (CUDA-core <T, D> or tensor-core <D>) over the six arms that
+// exist: none, mask, segments, mask + segments, dropout, segments +
+// dropout.
+template <typename T, int D, bool kMma>
+int launch_arm(const Params& p, int arm, int which, cudaStream_t stream) {
+#define FA_ARM(A)                                      \
+  case A:                                              \
+    if constexpr (kMma) return launch_mma<D, A>(p, which, stream); \
+    else return launch_core<T, D, A>(p, which, stream);
+  switch (arm) {
+    FA_ARM(0)
+    FA_ARM(kArmMask)
+    FA_ARM(kArmSeg)
+    FA_ARM(kArmMask | kArmSeg)
+    FA_ARM(kArmDrop)
+    FA_ARM(kArmSeg | kArmDrop)
+    default: return kInvalid;
+  }
+#undef FA_ARM
+}
+
+int dispatch(const Params& p, int dropout, int head_dim, int dtype, int which,
              cudaStream_t stream) {
   const Mask& mk = p.mk;
   const bool masked = mk.add != nullptr || mk.n_fm > 0;
+  const bool seg = mk.qseg != nullptr;
   if (p.B == 0) return 0;
   if (p.B < 0 || p.Sq <= 0 || p.Sk <= 0 || p.HKV <= 0 || p.H % p.HKV != 0 ||
       p.H > 65535 || p.B > 65535 || (mk.n_fm != 0 && mk.n_fm != 2 &&
                                      mk.n_fm != 4) ||
-      (mk.n_fm > 0 && mk.fm == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // K1 takes neither a mask nor bands nor Sq != Sk: those are K6's
-  if (which == kFwd && (masked || p.Sq != p.Sk))
-    return static_cast<int>(cudaErrorInvalidValue);
+      (mk.n_fm > 0 && mk.fm == nullptr) || (seg != (mk.kseg != nullptr)))
+    return kInvalid;
+  // K1 takes neither a mask nor bands nor Sq != Sk: those are K6's; dropout
+  // rides K1 and its backward only (_fa_kernel.py:447-456, :754-759)
+  if (which == kFwd && (masked || p.Sq != p.Sk)) return kInvalid;
+  if (dropout && (which == kStream || masked || p.Sq != p.Sk))
+    return kInvalid;
+  const int arm = (masked || which == kStream ? kArmMask : 0) |
+                  (seg ? kArmSeg : 0) | (dropout ? kArmDrop : 0);
   if (dtype == kF32) {
     switch (head_dim) {
-      case 64: return launch_core<float, 64>(p, which, masked, stream);
-      case 128: return launch_core<float, 128>(p, which, masked, stream);
-      case 256: return launch_core<float, 256>(p, which, masked, stream);
+      case 64: return launch_arm<float, 64, false>(p, arm, which, stream);
+      case 128: return launch_arm<float, 128, false>(p, arm, which, stream);
+      case 256: return launch_arm<float, 256, false>(p, arm, which, stream);
     }
   } else if (dtype == kBF16) {
     switch (head_dim) {
-      case 64: return launch_mma<64>(p, which, masked, stream);
-      case 128: return launch_mma<128>(p, which, masked, stream);
-      case 256: return launch_core<bf16, 256>(p, which, masked, stream);
+      case 64: return launch_arm<bf16, 64, true>(p, arm, which, stream);
+      case 128: return launch_arm<bf16, 128, true>(p, arm, which, stream);
+      case 256: return launch_arm<bf16, 256, false>(p, arm, which, stream);
     }
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return kInvalid;
 }
 
 Mask make_mask(int Sq, int Sk, int causal, const float* add, long long a_b,
                long long a_h, long long a_r, long long a_c, const int* fm,
-               int n_fm, long long f_band, long long f_b, long long f_h) {
+               int n_fm, long long f_band, long long f_b, long long f_h,
+               const int* qseg, const int* kseg) {
   return Mask{causal, Sk - Sq, add, a_b, a_h, a_r, a_c,
-              fm, n_fm, f_band, f_b, f_h};
+              fm, n_fm, f_band, f_b, f_h, qseg, kseg};
 }
 
 }  // namespace
 
 // Each entry returns cudaGetLastError() after its launch (0 = launched),
-// or cudaErrorInvalidValue for a shape, dtype or mask the kernels do not
-// take. The wrapper has checked devices, dtypes, shapes and contiguity.
-// Common arguments: B, Sq, Sk, H, HKV, head_dim; scale; causal; the
-// additive mask (or null) and its element strides over (batch, head, row,
-// key); the bands [n_fm, MB, MH, Sk] (or null), n_fm (0, 2 or 4) and their
-// strides over (band, batch, head); dtype; stream.
+// or cudaErrorInvalidValue for a shape, dtype, mask or arm the kernels do
+// not take. The wrapper has checked devices, dtypes, shapes and
+// contiguity. Common arguments: B, Sq, Sk, H, HKV, head_dim; scale;
+// causal; the additive mask (or null) and its element strides over (batch,
+// head, row, key); the bands [n_fm, MB, MH, Sk] (or null), n_fm (0, 2 or 4)
+// and their strides over (band, batch, head); the segment ids [B, Sq] and
+// [B, Sk] int32 (or both null); dropout (0 or 1), its seed's 32 bits, the
+// threshold a kept link's hash reaches and the kept links' scale; dtype;
+// stream.
 #define FA_MASK_ARGS                                                        \
   int B, int Sq, int Sk, int H, int HKV, int head_dim, float scale,         \
       int causal, const float *mask, long long m_b, long long m_h,          \
       long long m_r, long long m_c, const int *fm, int n_fm,                \
-      long long f_band, long long f_b, long long f_h, int dtype, void *stream
+      long long f_band, long long f_b, long long f_h, const int *qseg,      \
+      const int *kseg, int dropout, unsigned seed, unsigned keep_min,       \
+      float keep_scale, int dtype, void *stream
 #define FA_MASK                                                             \
   make_mask(Sq, Sk, causal, mask, m_b, m_h, m_r, m_c, fm, n_fm, f_band, f_b, \
-            f_h)
+            f_h, qseg, kseg),                                               \
+      seed, keep_min, keep_scale
 
 // K1. out [B,S,H,D]; lse [B,H,S] float32, or null when not wanted. Sq ==
 // Sk, no mask, no bands.
@@ -1349,7 +1525,7 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v,
                           void* out, float* lse, FA_MASK_ARGS) {
   const Params p{q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse,
                  B, Sq, Sk, H, HKV, scale, FA_MASK};
-  return dispatch(p, head_dim, dtype, kFwd,
+  return dispatch(p, dropout, head_dim, dtype, kFwd,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -1358,7 +1534,7 @@ extern "C" int fa_forward_stream(const void* q, const void* k, const void* v,
                                  void* out, float* lse, FA_MASK_ARGS) {
   const Params p{q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse,
                  B, Sq, Sk, H, HKV, scale, FA_MASK};
-  return dispatch(p, head_dim, dtype, kStream,
+  return dispatch(p, dropout, head_dim, dtype, kStream,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -1368,7 +1544,8 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
                               const float* delta, void* dq, FA_MASK_ARGS) {
   const Params p{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
                  B, Sq, Sk, H, HKV, scale, FA_MASK};
-  return dispatch(p, head_dim, dtype, kDq, static_cast<cudaStream_t>(stream));
+  return dispatch(p, dropout, head_dim, dtype, kDq,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // K3. dk, dv [B,Sk,HKV,D], each the sum over the G query heads of its group.
@@ -1378,6 +1555,6 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                                FA_MASK_ARGS) {
   const Params p{q, k, v, dout, lse, delta, dk, dv, nullptr,
                  B, Sq, Sk, H, HKV, scale, FA_MASK};
-  return dispatch(p, head_dim, dtype, kDkv,
+  return dispatch(p, dropout, head_dim, dtype, kDkv,
                   static_cast<cudaStream_t>(stream));
 }

@@ -3,10 +3,14 @@
 
 - :func:`flash_attention_bshd` — ``[B, Sq, H, D]`` attention (k/v at
   ``[B, Sk, HKV, D]``: GQA runs natively in the kernels), with an
-  optional mask (bool, True = keep, or additive). Its gradient is a
-  ``torch.autograd.Function`` whose forward saves the lse and whose
-  backward is K2 + K3 (the JAX package's ``_flash_core_ext`` /
-  ``_ext_fwd`` / ``_ext_bwd``).
+  optional mask (bool, True = keep, or additive), segment ids and
+  attention dropout. Its gradient is a ``torch.autograd.Function`` whose
+  forward saves the lse (and the dropout seed) and whose backward is K2 +
+  K3 (the JAX package's ``_flash_core_ext`` / ``_ext_fwd`` / ``_ext_bwd``
+  and ``_flash_core_drop`` / ``_drop_fwd`` / ``_drop_bwd`` in one). A bool
+  key-padding mask ``[B, 1, 1, Sk]`` becomes segment ids (keys 0 / -2,
+  queries 0), as in the JAX package.
+- :func:`flash_attention` — ``paddle.nn.functional.flash_attention``.
 - :func:`flash_core_lse` — the same function that also returns the row
   lse ``[B, H, Sq]`` and takes its cotangent (the ``dlse`` fold), for
   ring attention.
@@ -14,17 +18,26 @@
   ``startend_row_indices [B, H|1, Sk, 1|2|4]`` column bounds, the
   sliding window folded into them, through :func:`_flash_core_fm` /
   :func:`flash_core_fm_lse` (K6 forward, the banded arms of K2/K3).
-- :func:`_attention_ref` / :func:`_attention_ref_lse` — the plain
-  oracles, as in the JAX package.
+- :func:`_attention_ref` / :func:`_attention_ref_lse` /
+  :func:`_attention_ref_hash_dropout` — the plain oracles, as in the JAX
+  package.
 
 A mask, a band or ``Sq != Sk`` sends the forward to K6 and the backward
-to the masked arms of K2/K3; the rest runs K1-K3. On CPU tensors every
-call takes the kernels' plain versions; on CUDA tensors it launches the
-kernels or raises (:mod:`.fa_kernel`). The arms this port does not have
-yet — segment ids (and the bool key-padding mask ``[B, 1, 1, Sk]``, which
-the JAX package turns into segment ids), dropout, returned probabilities
-— raise ``NotImplementedError`` naming what is missing; they are never
-densified or sent to a plain version.
+to the masked arms of K2/K3; the rest runs K1-K3, segment ids in their
+segment arms. On CPU tensors every call takes the kernels' plain versions;
+on CUDA tensors it launches the kernels or raises (:mod:`.fa_kernel`).
+
+Dropout: wherever the JAX kernels take it (``0 < p < 1``, no dense mask
+or FlashMask, ``Sq == Sk``, no returned probabilities) dropout runs the
+counter-hash arms of K1-K3 (``fa_kernel.keep_scale``) at the caller's
+``seed`` (an int; ``models.gpt`` draws one per layer and training forward
+from its own generator), which a training call must give: there is no
+draw from a global default. The JAX package keeps that
+arm behind ``PADDLE_TPU_FA_KERNEL_DROPOUT`` and otherwise draws a threefry
+mask in XLA, which torch cannot reproduce; the port has no switch. The
+cases outside the kernels' reach (dropout with a mask, FlashMask or
+``Sq != Sk``; returned probabilities) raise ``NotImplementedError`` naming
+what is missing; they are never densified or sent to a plain version.
 """
 from __future__ import annotations
 
@@ -33,8 +46,9 @@ import torch
 from . import fa_kernel
 from .fa_kernel import fa_backward, fa_forward
 
-__all__ = ["flash_attention_bshd", "flash_core_lse", "flashmask_attention",
-           "flash_core_fm_lse", "dispatch_stats", "reset_dispatch_stats"]
+__all__ = ["flash_attention_bshd", "flash_attention", "flash_core_lse",
+           "flashmask_attention", "flash_core_fm_lse",
+           "dispatch_stats", "reset_dispatch_stats"]
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -74,6 +88,34 @@ def _attention_ref(q, k, v, mask=None, causal=False, scale=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _attention_ref_hash_dropout(q, k, v, seed, p, causal=True, q_seg=None,
+                                kv_seg=None):
+    """The parity definition of the counter-hash dropout (the JAX
+    package's namesake): plain attention with the keep mask rebuilt from
+    ``fa_kernel.keep_scale``, the dropped probabilities times float32 V,
+    cast to q's dtype. It scales the scores by ``1/sqrt(D)`` only, as the
+    JAX oracle does."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (
+        dh ** 0.5)
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits = logits.masked_fill(~keep, float("-inf"))
+    if q_seg is not None:
+        qs, ks = q_seg[:, None, :, None], kv_seg[:, None, None, :]
+        logits = logits.masked_fill(~((qs == ks) & (qs >= 0) & (ks >= 0)),
+                                    float("-inf"))
+    probs = torch.softmax(logits, -1).nan_to_num(0.0)
+    ks = fa_kernel.keep_bhqk(seed, b, h, sq, sk, p, q.device)
+    return torch.einsum("bhqk,bkhd->bqhd", probs * ks,
+                        v.float()).to(q.dtype)
+
+
 def _attention_ref_lse(q, k, v, causal=False, scale=None, mask=None):
     """Plain ``(out, lse [B,H,Sq] f32)`` with an optional additive mask
     ``[B|1, H|1, Sq, Sk]`` (a dead row gives out 0 and lse -inf): the
@@ -91,63 +133,58 @@ def _fm_kw(fm):
 
 class _FlashCore(torch.autograd.Function):
     """``(out, lse)``: K1 forward, or K6 with a mask, bands or Sq != Sk;
-    backward K2 + K3 (their masked arms likewise) with the lse's cotangent
-    folded into delta (none when only ``out`` is used). The mask and the
-    bands take no gradient."""
+    backward K2 + K3 (in the same arms) with the lse's cotangent folded
+    into delta (none when only ``out`` is used). The segment ids and the
+    dropout seed (an int) are saved with the lse, so the backward redraws
+    the forward's keep mask. The mask, the bands and the segment ids take
+    no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, mask, *fm):
+    def forward(ctx, q, k, v, causal, scale, mask, q_seg, kv_seg, dropout_p,
+                seed, *fm):
         ctx.set_materialize_grads(False)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = fa_forward(q, k, v, causal=causal, scale=scale,
-                              return_lse=True, mask=mask, **_fm_kw(fm))
-        ctx.save_for_backward(q, k, v, out, lse, mask, *fm)
+                              return_lse=True, mask=mask, q_seg=q_seg,
+                              kv_seg=kv_seg, dropout_p=dropout_p, seed=seed,
+                              **_fm_kw(fm))
+        ctx.save_for_backward(q, k, v, out, lse, mask, q_seg, kv_seg, *fm)
         ctx.causal, ctx.scale = causal, scale
+        ctx.dropout_p, ctx.seed = dropout_p, seed
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        q, k, v, out, lse, mask, *fm = ctx.saved_tensors
+        q, k, v, out, lse, mask, q_seg, kv_seg, *fm = ctx.saved_tensors
         if g_out is None:
             g_out = torch.zeros_like(out)
         dq, dk, dv = fa_backward(
             q, k, v, out, lse, g_out.contiguous(), causal=ctx.causal,
             scale=ctx.scale,
             dlse=g_lse.contiguous() if g_lse is not None else None,
-            mask=mask, **_fm_kw(fm))
-        return (dq, dk, dv, None, None, None) + (None,) * len(fm)
+            mask=mask, q_seg=q_seg, kv_seg=kv_seg, dropout_p=ctx.dropout_p,
+            seed=ctx.seed, **_fm_kw(fm))
+        return (dq, dk, dv) + (None,) * (7 + len(fm))
 
 
 def _needs_grad(*xs):
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def _attend(q, k, v, causal, scale, mask=None, fm=(), want_lse=False):
+def _attend(q, k, v, causal, scale, mask=None, fm=(), want_lse=False,
+            q_seg=None, kv_seg=None, dropout_p=0.0, seed=None):
     """The one entry into the kernels: with a gradient to take through
     :class:`_FlashCore`, else the forward alone (no lse is written unless
     asked for)."""
     fm = tuple(x for x in fm if x is not None)
     if _needs_grad(q, k, v):
-        out, lse = _FlashCore.apply(q, k, v, causal, scale, mask, *fm)
+        out, lse = _FlashCore.apply(q, k, v, causal, scale, mask, q_seg,
+                                    kv_seg, dropout_p, seed, *fm)
         return (out, lse) if want_lse else out
     return fa_forward(q.contiguous(), k.contiguous(), v.contiguous(),
                       causal=causal, scale=scale, return_lse=want_lse,
-                      mask=mask, **_fm_kw(fm))
-
-
-def _refuse(dropout_p, q_seg, kv_seg, return_probs=False):
-    missing = []
-    if q_seg is not None or kv_seg is not None:
-        missing.append("segment ids (the segment arms of K1-K3 and K6)")
-    if dropout_p:
-        missing.append(f"dropout_p={dropout_p} (the in-kernel "
-                       "_keep_scale dropout arms of K1-K3)")
-    if return_probs:
-        missing.append("return_probs")
-    if missing:
-        raise NotImplementedError(
-            "flash attention in paddle_tpu_torch does not port "
-            + "; ".join(missing) + " yet")
+                      mask=mask, q_seg=q_seg, kv_seg=kv_seg,
+                      dropout_p=dropout_p, seed=seed, **_fm_kw(fm))
 
 
 def _normalize_mask(m, b, h, sq, sk):
@@ -174,28 +211,80 @@ def _normalize_mask(m, b, h, sq, sk):
     return m.expand(m.shape[0], m.shape[1], sq, sk)
 
 
+def _refuse_dropout(dropout_p, why):
+    if why:
+        raise NotImplementedError(
+            f"flash attention in paddle_tpu_torch does not port dropout_p="
+            f"{dropout_p} with {why}: the counter-hash dropout arms of "
+            "K1-K3 take no dense mask, no FlashMask and no Sq != Sk (the "
+            "JAX package runs those cases in XLA with a threefry mask)")
+
+
 def flash_attention_bshd(q, k, v, mask=None, causal=False, dropout_p=0.0,
                          scale=None, q_seg=None, kv_seg=None,
-                         return_probs=False):
+                         return_probs=False, *, seed=None):
     """``[B, Sq, H, D]`` attention, k/v at ``[B, Sk, HKV, D]``. ``mask``
     is bool (True = keep) or additive, of any shape that broadcasts to
     ``[B, H, Sq, Sk]`` over its leading dims (the JAX package's mask
-    branch); it and ``Sq != Sk`` run on K6. Without a gradient to take,
-    only the forward runs (no lse is written)."""
-    _refuse(dropout_p, q_seg, kv_seg, return_probs)
+    branch); it and ``Sq != Sk`` run on K6. A bool key-padding mask
+    ``[B, 1, 1, Sk]`` without segment ids becomes them (keys 0 where kept
+    and -2 elsewhere, queries 0), as in the JAX package. ``q_seg`` /
+    ``kv_seg`` int ``[B, Sq]`` / ``[B, Sk]``: packed segment ids (a
+    negative id matches nothing). ``dropout_p`` in (0, 1) drops attention
+    links through the kernels' counter hash at ``seed`` (an int, which
+    dropout needs). Without a gradient to take, only the forward runs (no
+    lse is written)."""
+    if return_probs:
+        raise NotImplementedError(
+            "flash attention in paddle_tpu_torch does not port return_probs "
+            "(return_softmax): the kernels never hold the [Sq, Sk] "
+            "probabilities")
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     marr = None
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("q_seg and kv_seg must both be given or both be "
+                         "None")
     if mask is not None:
         if (mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1
-                and mask.dtype == torch.bool):
-            raise NotImplementedError(
-                "flash attention in paddle_tpu_torch does not port a bool "
-                "key-padding attention mask [B, 1, 1, Sk] yet: the JAX "
-                "package turns it into segment ids, which run on the "
-                "segment arms of K1-K3 and K6")
-        marr = _normalize_mask(mask, b, h, sq, sk)
-    return _attend(q, k, v, causal, scale, mask=marr)
+                and mask.dtype == torch.bool and q_seg is None):
+            keep = mask[:, 0, 0, :].expand(b, sk)
+            kv_seg = torch.where(keep, 0, -2).to(torch.int32)
+            q_seg = torch.zeros(b, sq, dtype=torch.int32, device=q.device)
+        else:
+            marr = _normalize_mask(mask, b, h, sq, sk)
+    if dropout_p:
+        if not 0.0 < dropout_p < 1.0:
+            raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+        _refuse_dropout(dropout_p, "a dense attention mask"
+                        if marr is not None else
+                        f"Sq={sq} != Sk={sk}" if sq != sk else None)
+        if seed is None:
+            raise ValueError("attention dropout draws its keep mask from a "
+                             "counter hash at seed=: pass seed= (an int)")
+        return _attend(q, k, v, causal, scale, q_seg=q_seg, kv_seg=kv_seg,
+                       dropout_p=float(dropout_p), seed=seed)
+    return _attend(q, k, v, causal, scale, mask=marr, q_seg=q_seg,
+                   kv_seg=kv_seg)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None, *, seed=None):
+    """``paddle.nn.functional.flash_attention``: ``(out, None)``; dropout
+    only in training, at ``seed`` (an int, which it needs).
+    ``return_softmax`` raises (the kernels never hold the probabilities),
+    and so do ``fixed_seed_offset`` / ``rng_name``, which the JAX package
+    accepts and never reads."""
+    if fixed_seed_offset is not None or rng_name:
+        raise NotImplementedError(
+            "flash_attention(fixed_seed_offset=, rng_name=) is not ported: "
+            "the dropout seed comes from seed=")
+    drop_p = dropout if training else 0.0
+    return flash_attention_bshd(query, key, value, causal=causal,
+                                dropout_p=drop_p,
+                                return_probs=return_softmax,
+                                seed=seed), None
 
 
 def flash_core_lse(q, k, v, causal, scale):
@@ -254,16 +343,17 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     it folds into the bounds: alone as one band, into a C=1 index by a
     column-wise min, and with a C=2 index as the second band of the C=4
     form. Returns ``out`` or, with ``return_softmax_lse``, ``(out,
-    lse)``. Dropout (and its ``fixed_seed_offset`` / ``rng_name``) is not
-    ported and raises."""
+    lse)``. Dropout in training (and its ``fixed_seed_offset`` /
+    ``rng_name``) raises: the kernels' dropout arms take no band."""
     q, k, v = query, key, value
     sk = k.shape[1]
     drop_p = dropout if training else 0.0
     if drop_p or fixed_seed_offset is not None or rng_name:
         raise NotImplementedError(
             "flashmask_attention in paddle_tpu_torch does not port dropout "
-            "(fixed_seed_offset / rng_name seed it) yet: the in-kernel "
-            "_keep_scale dropout arms of K1-K3")
+            "(fixed_seed_offset / rng_name seed it): the counter-hash "
+            "dropout arms of K1-K3 take no FlashMask band (the JAX package "
+            "runs it in XLA with a threefry mask)")
     fm = None
     raw = startend_row_indices
     if raw is not None:

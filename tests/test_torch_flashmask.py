@@ -292,21 +292,26 @@ def test_refusals_match_the_reference():
 
 
 def test_segment_and_dropout_arms_raise():
-    """The bool key-padding mask (segment ids in the JAX package) and
-    dropout are not ported: they raise, never densified or sent to a
-    plain version."""
+    """The bool key-padding mask runs as segment ids (keys 0 / -2, never a
+    dense mask) and bshd's dropout as the counter hash; FlashMask's
+    dropout, which the kernels' dropout arms do not take, raises before
+    any plain version runs."""
     q = torch.randn(1, 32, 4, 16)
     pad = torch.ones(1, 1, 1, 32, dtype=torch.bool)
+    pad[..., 20:] = False
     TK.reset_stats()
-    with pytest.raises(NotImplementedError, match="segment"):
-        TFA.flash_attention_bshd(q, q, q, mask=pad, causal=True)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TFA.flash_attention_bshd(q, q, q, causal=True, dropout_p=0.1)
+    _close(TFA.flash_attention_bshd(q, q, q, mask=pad, causal=True),
+           TFA._attention_ref(q, q, q, mask=pad, causal=True), ATOL, "pad")
+    _close(TFA.flash_attention_bshd(q, q, q, causal=True, dropout_p=0.1,
+                                    seed=3),
+           TFA._attention_ref_hash_dropout(q, q, q, 3, 0.1, causal=True),
+           ATOL, "dropout")
+    assert TK.stats["plain_fwd_calls"] == 2
     for kw in (dict(dropout=0.1), dict(fixed_seed_offset=torch.zeros(2)),
                dict(rng_name="local_seed")):
         with pytest.raises(NotImplementedError, match="dropout"):
             TF.flashmask_attention(q, q, q, window_size=3, **kw)
-    assert TK.stats["plain_fwd_calls"] == 0
+    assert TK.stats["plain_fwd_calls"] == 2
     # without training, flashmask_attention's dropout is off, as in JAX
     out = TF.flashmask_attention(q, q, q, window_size=3, dropout=0.1,
                                  training=False)

@@ -16,13 +16,15 @@ import torch
 
 from paddle_tpu_torch import resolve_device
 from paddle_tpu_torch.hapi import Model
-from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                     LlamaConfig, LlamaForCausalLM,
                                      LlamaPretrainingCriterion)
-from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.nn.functional import (dropout,
+                                            scaled_dot_product_attention)
 from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
-from paddle_tpu_torch.ops.flash_attention import (_attention_ref,
-                                                  flash_attention_bshd,
-                                                  flash_core_lse)
+from paddle_tpu_torch.ops.flash_attention import (
+    _attention_ref, _attention_ref_hash_dropout, flash_attention_bshd,
+    flash_core_lse)
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import PagedKVCache, ServingEngine
 
@@ -66,7 +68,8 @@ def test_the_check_matches_module_names_exactly():
     for mod in ("serving/engine.py", "ops/fa_kernel.py",
                 "ops/flash_attention.py", "ops/adamw_kernel.py",
                 "optimizer/optimizer.py", "optimizer/optimizers.py",
-                "optimizer/lr.py", "hapi/model.py", "models/llama.py"):
+                "optimizer/lr.py", "hapi/model.py", "models/llama.py",
+                "models/gpt.py", "nn/common.py", "nn/norm.py"):
         assert f"paddle_tpu_torch/{mod}" in names, mod
 
 
@@ -141,12 +144,18 @@ def test_kernel_wrappers_refuse_tensors_off_a_card():
 
 
 @pytest.mark.parametrize("kwargs,missing", [
-    (dict(mask=torch.ones(1, 1, 1, 8, dtype=torch.bool)), "attention mask"),
-    (dict(q_seg=torch.zeros(1, 8, dtype=torch.int32),
-          kv_seg=torch.zeros(1, 8, dtype=torch.int32)), "segment ids"),
-    (dict(dropout_p=0.1), "dropout"),
+    (dict(mask=torch.ones(8, 8, dtype=torch.bool), dropout_p=0.1),
+     "dense attention mask"),
+    (dict(mask=torch.zeros(1, 4, 8, 8), dropout_p=0.1,
+          q_seg=torch.zeros(1, 8, dtype=torch.int32),
+          kv_seg=torch.zeros(1, 8, dtype=torch.int32)),
+     "dense attention mask"),
+    (dict(dropout_p=0.1, return_probs=True), "return_probs"),
     (dict(return_probs=True), "return_probs")])
 def test_flash_attention_refuses_the_unported_arms(kwargs, missing):
+    """What the kernels do not take raises, naming it: dropout beside a
+    dense mask (the JAX package draws a threefry mask in XLA there) and
+    the returned probabilities."""
     q = torch.randn(1, 8, 4, 16)
     with pytest.raises(NotImplementedError, match=missing):
         flash_attention_bshd(q, q, q, causal=True, **kwargs)
@@ -154,8 +163,10 @@ def test_flash_attention_refuses_the_unported_arms(kwargs, missing):
 
 def test_cross_length_and_sdpa_options_are_refused_not_dropped():
     """Cross-length attention and sdpa's mask run (K6's arms) with their
-    semantics, the causal diagonal at Sk - Sq and the mask applied; what
-    is not ported (the bool key-padding mask, dropout) raises."""
+    semantics, the causal diagonal at Sk - Sq and the mask applied; the
+    bool key-padding mask runs as segment ids and dropout as the counter
+    hash, each with its semantics; dropout across Sq != Sk, which the
+    kernels do not take, raises."""
     q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 12, 4, 16)
     got = flash_attention_bshd(q, k, k, causal=True)
     torch.testing.assert_close(got, _attention_ref(q, k, k, causal=True))
@@ -167,11 +178,21 @@ def test_cross_length_and_sdpa_options_are_refused_not_dropped():
     torch.testing.assert_close(
         scaled_dot_product_attention(q, q, q, attn_mask=keep),
         _attention_ref(q, q, q, mask=keep))
-    with pytest.raises(NotImplementedError, match="segment"):
-        scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.ones(1, 1, 1, 8, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    pad = torch.ones(1, 1, 1, 8, dtype=torch.bool)
+    pad[..., 5:] = False
+    torch.testing.assert_close(
+        scaled_dot_product_attention(q, q, q, attn_mask=pad),
+        _attention_ref(q, q, q, mask=pad))
+    torch.testing.assert_close(
+        scaled_dot_product_attention(q, q, q, dropout_p=0.1, is_causal=True,
+                                     seed=7),
+        _attention_ref_hash_dropout(q, q, q, 7, 0.1, causal=True))
+    with pytest.raises(NotImplementedError, match="Sq=8 != Sk=12"):
+        scaled_dot_product_attention(q, k, k, dropout_p=0.1, seed=7)
+    with pytest.raises(ValueError, match="generator"):
+        dropout(q, 0.1)
+    with pytest.raises(ValueError, match="seed="):
+        scaled_dot_product_attention(q, q, q, dropout_p=0.1, is_causal=True)
     out = scaled_dot_product_attention(q, q, q, dropout_p=0.1,
                                        training=False, is_causal=True)
     assert out.shape == q.shape
@@ -193,3 +214,16 @@ def test_arguments_the_port_would_not_read_are_refused():
         Adam(1e-3, parameters=net.parameters(), use_multi_tensor=True)
     assert LlamaPretrainingCriterion(LlamaConfig(**TINY)).bind(net) \
         is not None
+
+
+def test_gpt_entry_points_do_not_fall_back_to_the_cpu(no_cuda):
+    """GPTForCausalLM runs on the card unless given device="cpu", and its
+    unported options raise rather than being ignored."""
+    cfg = GPTConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(cfg)
+    net = GPTForCausalLM(cfg, device="cpu")
+    assert net.device.type == "cpu" and net.generator.device.type == "cpu"
+    for kw in (dict(tensor_parallel=True), dict(recompute=True)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            GPTForCausalLM(GPTConfig.tiny(**kw), device="cpu")
