@@ -8,16 +8,20 @@ Phases, each of which passes or ends the script with a non-zero code:
 
 1. The card's name and power limit, the torch/CUDA versions, and the
    build of every kernel from the sources in this checkout (one ``nvcc``
-   per source, all started together).
-2. ``kernels``: each hand-written kernel (K5 ragged paged attention,
-   K1-K3 flash attention forward / dq / dk-dv, K4 multi-tensor AdamW)
-   against its plain PyTorch version on the card, at the shapes the
-   serving and training paths give it and at the other arms it takes,
-   with the stated tolerance (flash attention element by element, and
-   planted faults must fail the same comparison; AdamW's bf16 params
-   exactly their masters rounded); its time beside the plain version's,
-   one PyTorch library call's (a yardstick the port never calls) and the
-   card's bound.
+   per source, all started together); the HGMMA (wgmma) instructions in
+   the SASS of K1's forward, counted with ``cuobjdump`` (none fails).
+2. ``kernels``: each hand-written kernel (K5 ragged paged attention in
+   its split and tile forms, K1-K3 flash attention forward / dq / dk-dv,
+   K4 multi-tensor AdamW) against its plain PyTorch version on the card,
+   at the shapes the serving and training paths give it and at the other
+   arms it takes (K5 also at the split form's boundaries, through both
+   its entries, rows with no live key exactly 0), with the stated
+   tolerance (flash attention element by element; K5 2e-2 of the element
+   plus 2e-2; planted faults must fail the same comparison; AdamW's bf16
+   params exactly their masters rounded); its time beside the plain
+   version's, one PyTorch library call's (a yardstick the port never
+   calls) and the card's bound (K5 at LLaMA-2-7B's and Mistral's GQA
+   32:8 decode and prefill shapes, from CUDA-graph replays).
 3. ``masked``: K6 (the streamed masked forward) and the masked arms of
    K2/K3 the same way, at B 1, S 4096, H 32 over 8 kv heads with the
    window cut to 1024: the window, C=1 documents with the window, a C=2
@@ -76,7 +80,9 @@ Phases, each of which passes or ends the script with a non-zero code:
    llama2_7b(dtype="bfloat16", use_flash_attention=False))`` at full
    width and depth, random weights from a seed, answers 8 requests.
    Every request must finish with its token count; K5 must have
-   launched layers x forwards times and its plain version never; the
+   launched layers x forwards times and its plain version never, every
+   prefill chunk through the tile form and every decode step through the
+   split form and its combine; the
    greedy requests' last-prompt-token logits must agree with a dense
    forward of the same model in plain float32 attention.
 
@@ -124,6 +130,29 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def hgmma_counts(lib_path):
+    """(HGMMA instructions in K1's forward, ``fa_fwd_wgmma_kernel`` in
+    every instantiation; HGMMA in the library's other kernels) from
+    ``cuobjdump -sass``, or None where the toolkit has no cuobjdump."""
+    import shutil
+    tool = next((str(p) for p in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                     "cuobjdump"), "/usr/local/cuda/bin/cuobjdump")
+        if os.path.exists(p)), None) or shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    mine = other = 0
+    for fn in sass.split("Function : ")[1:]:
+        n = fn.count("HGMMA")
+        if "fa_fwd_wgmma_kernel" in fn.splitlines()[0]:
+            mine += n
+        else:
+            other += n
+    return mine, other
+
+
 def cuda_ms(fn, iters, warmup=2):
     """Mean device milliseconds of ``fn`` over ``iters`` back-to-back
     calls, timed with CUDA events after ``warmup`` calls."""
@@ -141,15 +170,35 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters, reps=10):
+    """Mean device milliseconds of one ``fn`` call, from a CUDA graph of
+    ``reps`` calls replayed ``iters`` times: the launches' device time
+    without the host's Python between them (a call whose device time is
+    shorter than its host time would otherwise time the host)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, iters, warmup=1) / reps
+
+
 # -- ragged paged attention (K5) ---------------------------------------------
 
 def make_case(lanes, *, nh, nkv, dtype, int8=False, window=None,
-              pad_tokens=0, pad_lanes=0, seed=0, dev="cuda"):
+              pad_tokens=0, pad_lanes=0, seed=0, dev="cuda", d=HEAD_DIM):
     """A token-packed batch over a page pool of KV_POOL_PAGES pages.
     ``lanes`` = [(context_len, query_len), ...]: each lane's queries are
     its last ``query_len`` positions, its keys sit in randomly ordered
     pages. Padded lanes have context 1 on the scratch page, padding
-    tokens follow the real ones, as the engine lays them out."""
+    tokens follow the real ones, as the engine lays them out; head_dim
+    ``d``."""
     import torch
     from paddle_tpu_torch.serving.attention import _token_lanes, quantize_q8
     dev = torch.device(dev)
@@ -171,7 +220,7 @@ def make_case(lanes, *, nh, nkv, dtype, int8=False, window=None,
     if used > KV_POOL_PAGES - 1:
         raise ValueError("case needs more pages than the pool holds")
     t = int(ql.sum()) + pad_tokens
-    shape = (KV_POOL_PAGES, PAGE_SIZE, nkv, HEAD_DIM)
+    shape = (KV_POOL_PAGES, PAGE_SIZE, nkv, d)
     kf = torch.randn(shape, generator=g, device=dev)
     vf = torch.randn(shape, generator=g, device=dev)
     if int8:
@@ -180,10 +229,9 @@ def make_case(lanes, *, nh, nkv, dtype, int8=False, window=None,
         kp, vp = kf.to(dtype), vf.to(dtype)
     pt, cl, ql, qoff = (x.to(dev) for x in (pt, cl, ql, qoff))
     lane, pos = _token_lanes(ql, qoff, t)
-    return dict(q=torch.randn(t, nh, HEAD_DIM, generator=g,
-                              device=dev).to(dtype),
+    return dict(q=torch.randn(t, nh, d, generator=g, device=dev).to(dtype),
                 k=kp, v=vp, pt=pt, cl=cl, ql=ql, qoff=qoff, lane=lane,
-                pos=pos, window=window, scale=HEAD_DIM ** -0.5,
+                pos=pos, window=window, scale=d ** -0.5,
                 n_real=t - pad_tokens)
 
 
@@ -244,10 +292,63 @@ def sdpa_inputs(c):
     return qs, ks, vs, mask
 
 
+def k5_ratio(got, want, tol):
+    """The largest |got - want| / (tol + tol |want|) over the elements:
+    an output passes at ratio <= 1."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (tol + tol * w.abs())).max().item()
+
+
+def k5_faults(dev="cuda"):
+    """The plain outputs as a kernel with one fault would give them, and
+    what the check holds them against: a split dropped from the combine
+    (decode lanes at split boundaries), every key read one page later (the
+    same lanes), and the causal limit one key late (a prefill chunk from
+    position 0, whose first rows see few keys). Returns (name, got, want,
+    rows) triples."""
+    import torch
+    from paddle_tpu_torch.serving import attention as A
+
+    bf16 = torch.bfloat16
+    c = make_case([(511, 1), (257, 1), (777, 1), (40, 1)], nh=32, nkv=32,
+                  dtype=bf16, seed=31, dev=dev)
+    args = [c["q"], c["k"], c["v"], c["pt"], c["cl"], c["pos"], c["lane"]]
+    kw = dict(scale=c["scale"], window=None)
+    want = A.ragged_paged_attention_plain(*args, **kw)
+    m, l, acc = A.split_partials_plain(*args, **kw)
+    m[0, :, 0] = float("-inf")           # token 0's first split dropped
+    dropped = A.combine_splits_plain(m, l, acc, bf16)
+    shifted = list(args)
+    shifted[3] = torch.roll(c["pt"], -1, dims=1).contiguous()
+    paged = A.ragged_paged_attention_plain(*shifted, **kw)
+    p = make_case([(256, 256)], nh=32, nkv=32, dtype=bf16, seed=32,
+                  dev=dev)
+    pargs = [p["q"], p["k"], p["v"], p["pt"], p["cl"], p["pos"], p["lane"]]
+    pwant = A.ragged_paged_attention_plain(*pargs, **kw)
+    late = list(pargs)
+    late[5] = p["pos"] + 1
+    causal = A.ragged_paged_attention_plain(*late, **kw)
+    return [("a split dropped from the combine", dropped, want),
+            ("keys read one page later", paged, want),
+            ("the causal limit one key late", causal, pwant)]
+
+
+def k5_rect(c, rows):
+    """The case's lanes as the engine's rectangular [B, S] call: q [B, S,
+    H, D] and each row's first position (every lane of the case has
+    ``rows`` queries)."""
+    t, nh, d = c["q"].shape
+    return c["q"].reshape(t // rows, rows, nh, d), c["qoff"]
+
+
 def kernel_phase(dev="cuda"):
-    """K5 against its plain version at the serving path's shapes; times
-    at the engine's decode and prefill shapes. Returns the largest bf16
-    error and the timings."""
+    """K5 against its plain version at the serving path's shapes and at the
+    split form's boundaries, through the token-packed entry (both forms
+    and the device-built tile plan) and the engine's rectangular one (one
+    form each); planted faults the same comparison must reject; times at
+    the engine's decode and prefill shapes for LLaMA-2-7B (MHA) and
+    Mistral's GQA 32:8, through the rectangular entry the engine calls.
+    Returns the largest bf16 error and the timings."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.serving import attention as A
@@ -256,6 +357,10 @@ def kernel_phase(dev="cuda"):
               (1500, 1), (1800, 1), (2047, 1)]
     prefill = [(1024, 256)]
     mixed = decode[:5] + [(1024, 256), (300, 5)]
+    # contexts at and around the 256-key splits, a lane of context 1, a
+    # lane using the page table's whole width (4096 keys)
+    bounds = [(256, 1), (257, 1), (511, 1), (512, 1), (513, 1), (1, 1),
+              (4096, 1)]
     bf16 = torch.bfloat16
     checks = [
         ("llama2_7b decode bf16", decode, dict(nh=32, nkv=32, dtype=bf16)),
@@ -273,10 +378,30 @@ def kernel_phase(dev="cuda"):
          dict(nh=32, nkv=8, dtype=bf16, int8=True, window=300)),
         ("GQA 32:8 f32", [(37, 1), (300, 5), (200, 64)],
          dict(nh=32, nkv=8, dtype=torch.float32, pad_tokens=3)),
+        ("split boundaries bf16, padded lanes and tokens", bounds,
+         dict(nh=32, nkv=32, dtype=bf16, pad_tokens=5, pad_lanes=2)),
+        ("split boundaries GQA window 300 (a split inside a page)", bounds,
+         dict(nh=32, nkv=8, dtype=bf16, window=300)),
+        ("split boundaries int8 pages window 700", bounds,
+         dict(nh=32, nkv=8, dtype=bf16, int8=True, window=700)),
+        ("tiles from position 0, runs cut at 64, window 100",
+         [(256, 256), (70, 65), (300, 2), (37, 1)],
+         dict(nh=32, nkv=8, dtype=bf16, window=100, pad_tokens=3)),
+        ("rows with no live key (window 50, positions past the context)",
+         [(300, 1), (200, 40)], dict(nh=32, nkv=32, dtype=bf16, window=50)),
+        ("head_dim 64 GQA 32:8 mixed bf16 window 100", mixed,
+         dict(nh=32, nkv=8, dtype=bf16, window=100, d=64)),
+        ("head_dim 64 int8 pages", mixed,
+         dict(nh=16, nkv=16, dtype=bf16, int8=True, d=64)),
+        ("head_dim 256 (split form alone) GQA 2:1", mixed,
+         dict(nh=8, nkv=4, dtype=bf16, d=256, pad_tokens=2)),
     ]
     worst = 0.0
     for i, (name, lanes, kw) in enumerate(checks):
         c = make_case(lanes, seed=i, dev=dev, **kw)
+        if name.startswith("rows with no live key"):
+            # tokens far past their lane's context: no key in the window
+            c["pos"][:c["n_real"]:3] += 1000
         args = (c["q"], c["k"], c["v"], c["pt"], c["cl"], c["pos"],
                 c["lane"])
         kw_a = dict(scale=c["scale"], window=c["window"])
@@ -285,39 +410,101 @@ def kernel_phase(dev="cuda"):
         if not torch.isfinite(got.float()).all():
             raise AssertionError(f"{name}: kernel output is not finite")
         n = c["n_real"]
-        err = (got[:n].float() - want[:n].float()).abs().max().item()
         tol = F32_TOL if c["q"].dtype == torch.float32 else BF16_TOL
-        torch.testing.assert_close(got[:n].float(), want[:n].float(),
-                                   atol=tol, rtol=tol, msg=name)
+        ratio = k5_ratio(got[:n], want[:n], tol)
+        err = (got[:n].float() - want[:n].float()).abs().max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name}: past the tolerance: ratio "
+                                 f"{ratio}, max abs err {err}")
+        if name.startswith("rows with no live key"):
+            dead = (c["pos"][:n] - c["window"] + 1
+                    >= c["cl"][c["lane"][:n].long()])
+            if not dead.any() or got[:n][dead].abs().max().item() != 0:
+                raise AssertionError(f"{name}: rows with no key are not 0")
         if tol == BF16_TOL:
             worst = max(worst, err)
         print(f"kernel check ok: {name}: T={c['q'].shape[0]} "
-              f"max_abs_err={err:.3e} (tol {tol})", flush=True)
+              f"max_abs_err={err:.3e} ratio {ratio:.3f} (tol {tol})",
+              flush=True)
+    # the engine's rectangular calls: S = 1 (split form alone) and S = 256
+    # (tile form alone)
+    for name, lanes, kw, rows in (
+            ("rectangular decode B 8 x S 1", decode,
+             dict(nh=32, nkv=32, dtype=bf16), 1),
+            ("rectangular prefill B 1 x S 256 GQA 32:8", prefill,
+             dict(nh=32, nkv=8, dtype=bf16), 256),
+            ("rectangular prefill B 2 x S 100 int8 window 64",
+             [(700, 100), (150, 100)],
+             dict(nh=32, nkv=8, dtype=bf16, int8=True, window=64), 100)):
+        c = make_case(lanes, seed=50 + rows, dev=dev, **kw)
+        q4, qoff = k5_rect(c, rows)
+        rargs = (q4, c["k"], c["v"], c["pt"], c["cl"], qoff)
+        kw_a = dict(scale=c["scale"], window=c["window"])
+        before = dict(A.stats)
+        got = A.paged_attention(*rargs, **kw_a)
+        forms = {k_: A.stats[k_] - before[k_] for k_ in
+                 ("decode_launches", "tile_launches", "combine_launches")}
+        want = A.paged_attention_ref(*rargs, **kw_a)
+        ratio = k5_ratio(got, want, BF16_TOL)
+        err = (got.float() - want.float()).abs().max().item()
+        want_forms = ({"decode_launches": 1, "tile_launches": 0,
+                       "combine_launches": 1} if rows == 1 else
+                      {"decode_launches": 0, "tile_launches": 1,
+                       "combine_launches": 0})
+        if not ratio <= 1.0 or forms != want_forms:
+            raise AssertionError(f"{name}: ratio {ratio}, launches {forms} "
+                                 f"(want {want_forms})")
+        worst = max(worst, err)
+        print(f"kernel check ok: {name}: max_abs_err={err:.3e} ratio "
+              f"{ratio:.3f}, launches {forms}", flush=True)
+    for fault, got, want in k5_faults(dev):
+        ratio = k5_ratio(got, want, BF16_TOL)
+        if not ratio > 1.0:
+            raise AssertionError(f"the K5 check passes a planted fault: "
+                                 f"{fault}: ratio {ratio}")
+        print(f"planted fault rejected: K5 {fault}: ratio {ratio:.2f}",
+              flush=True)
 
     timings = {}
-    for name, lanes in (("decode", decode), ("prefill", prefill)):
-        c = make_case(lanes, nh=32, nkv=32, dtype=bf16, seed=100, dev=dev)
+    for name, lanes, nkv, rows in (("decode", decode, 32, 1),
+                                   ("prefill", prefill, 32, 256),
+                                   ("decode_gqa", decode, 8, 1),
+                                   ("prefill_gqa", prefill, 8, 256)):
+        c = make_case(lanes, nh=32, nkv=nkv, dtype=bf16, seed=100, dev=dev)
+        q4, qoff = k5_rect(c, rows)
+        rargs = (q4, c["k"], c["v"], c["pt"], c["cl"], qoff)
         args = (c["q"], c["k"], c["v"], c["pt"], c["cl"], c["pos"],
                 c["lane"])
         kw_a = dict(scale=c["scale"], window=None)
-        ms = cuda_ms(lambda: A.ragged_paged_attention_cuda(*args, **kw_a),
-                     iters=20)
+        ms = graph_ms(lambda: A.ragged_paged_attention_cuda(
+            *args, rows=rows, **kw_a), iters=20)
+        call_ms = cuda_ms(lambda: A.paged_attention(*rargs, **kw_a),
+                          iters=20)
         plain_ms = cuda_ms(
             lambda: A.ragged_paged_attention_plain(*args, **kw_a),
             iters=3, warmup=1)
         qs, ks, vs, mask = sdpa_inputs(c)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        g = 32 // nkv
+        if g > 1:
+            ks, vs = (x.repeat_interleave(g, dim=1) for x in (ks, vs))
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=c["scale"]), iters=20)
         nbytes, flops = case_work(c)
         bound_ms, bound_by = bound(nbytes, flops)
-        timings[name] = dict(ms=ms, plain_ms=plain_ms,
+        timings[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bytes=nbytes, flops=flops,
-                             tokens=c["q"].shape[0])
-        print(f"kernel time {name}: T={c['q'].shape[0]} kernel {ms:.4f} ms"
-              f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
-              f"{flops} flop)", flush=True)
+                             tokens=c["q"].shape[0], kv_heads=nkv)
+        print(f"kernel time {name}: T={c['q'].shape[0]} H 32 KV {nkv}: "
+              f"kernel {ms:.4f} ms (the engine's call with its Python "
+              f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes} B, {flops} flop)", flush=True)
+    print("kernel time K5: the kernels of the engine's [B, S] call "
+          "(decode: the split form and its combine; prefill: the tile "
+          "form) and sdpa (on K/V gathered per lane; GQA: repeated to 32 "
+          "heads) replayed from CUDA graphs; the call with its Python "
+          "timed back to back", flush=True)
     return worst, timings
 
 
@@ -2208,6 +2395,7 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0):
                for n in PROMPT_LENS]
     A.reset_stats()
     dispatches0 = eng.metrics.step_dispatches.value
+    chunks0 = eng.metrics.prefill_chunks.value
     t_start = time.perf_counter()
     rids = []
     for i, p in enumerate(prompts):
@@ -2231,6 +2419,7 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0):
     wall = time.perf_counter() - t_start
     counts = dict(A.stats)
     forwards = eng.metrics.step_dispatches.value - dispatches0
+    prefills = eng.metrics.prefill_chunks.value - chunks0
 
     res = eng.results()
     for rid, p in zip(rids, prompts):
@@ -2240,15 +2429,23 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0):
             raise AssertionError(f"request {rid} (prompt {p.size}) "
                                  f"finished {r['finish_reason']} with "
                                  f"{len(r['tokens'])} tokens")
-    want = layers * forwards
-    if counts["kernel_launches"] != want or counts["plain_calls"] != 0:
+    # one K5 call a layer and forward: a prefill chunk's through the tile
+    # form, a decode step's through the split form and its combine
+    want = {"kernel_launches": layers * forwards, "plain_calls": 0,
+            "tile_launches": layers * prefills,
+            "decode_launches": layers * (forwards - prefills),
+            "combine_launches": layers * (forwards - prefills)}
+    if counts != want:
         raise AssertionError(
-            f"attention counts {counts}: want {want} kernel launches "
-            f"({layers} layers x {forwards} forwards) and 0 plain calls")
+            f"attention counts {counts}: want {want} ({layers} layers x "
+            f"{forwards} forwards, {prefills} of them prefill chunks)")
     print(f"engine ok: {len(rids)} requests x {NEW_TOKENS} tokens in "
           f"{steps} steps, {forwards} forwards, kernel launches "
-          f"{counts['kernel_launches']} = {layers} x {forwards}, plain "
-          f"calls 0", flush=True)
+          f"{counts['kernel_launches']} = {layers} x {forwards}: tile form "
+          f"{counts['tile_launches']} = {layers} x {prefills} prefill "
+          f"chunks, split form {counts['decode_launches']} and combine "
+          f"{counts['combine_launches']} = {layers} x "
+          f"{forwards - prefills} decode steps; plain calls 0", flush=True)
 
     worst_cos = 1.0
     for i, (rid, p) in enumerate(zip(rids, prompts)):
@@ -2291,6 +2488,8 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0):
         step_max_s=m["step_duration_s"]["max"],
         preemptions=m["preemptions"], worst_cosine=worst_cos,
         launches=counts["kernel_launches"],
+        form_launches={k: counts[k] for k in (
+            "tile_launches", "decode_launches", "combine_launches")},
         peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
                       if model.device.type == "cuda" else None))
     print(f"serving [{smi}]: TTFT p50 {summary['ttft_p50_s']:.4f} s "
@@ -2408,6 +2607,17 @@ def main(argv=None):
           flush=True)
     build_s = build([A.KERNEL_LIBRARY, *KERNEL_LIBRARIES])
     print(f"kernels built from source in {build_s:.1f} s", flush=True)
+    from paddle_tpu_torch.ops import fa_kernel as FK
+    hgmma = hgmma_counts(FK.KERNEL_LIBRARY.path)
+    if hgmma is None:
+        print("sass: no cuobjdump in the toolkit; HGMMA not counted",
+              flush=True)
+    else:
+        print(f"sass: {hgmma[0]} HGMMA instructions in K1's forward "
+              f"(fa_fwd_wgmma_kernel, every arm and head_dim), {hgmma[1]} "
+              "in the library's other kernels", flush=True)
+        if hgmma[0] == 0:
+            raise AssertionError("K1's forward has no HGMMA in its SASS")
 
     from paddle_tpu_torch.models import GPTConfig, LlamaConfig
     train_cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS,
@@ -2417,7 +2627,8 @@ def main(argv=None):
                                          dtype="bfloat16",
                                          fuse_linear_cross_entropy=True)
     res = {"card": smi, "torch": torch.__version__,
-           "cuda": torch.version.cuda, "build_s": build_s, "phase_s": {}}
+           "cuda": torch.version.cuda, "build_s": build_s,
+           "k1_hgmma": hgmma, "phase_s": {}}
 
     def phase(name, fn, *a, **kw):
         t0 = time.perf_counter()
@@ -2511,16 +2722,24 @@ def kernel_rows(res):
     rows = []
     k5 = res.get("k5")
     if k5:
+        # the row's numbers are the decode form's (split + combine) at the
+        # engine's decode shape; prefill_* the tile form's at its prefill
+        # chunk; shapes every timed shape, GQA 32:8 too
         worst_err, timings = k5
-        t = timings["decode"]
+        t, pf = timings["decode"], timings["prefill"]
+        engine = res.get("engine", {})
         rows.append(dict(
             name="ragged_paged_attention", route="cuda",
             source="paddle_tpu_torch/serving/csrc/ragged_paged_attention.cu",
             replaces="paddle_tpu/serving/attention.py:289",
-            launches=res.get("engine", {}).get("launches"),
+            launches=engine.get("launches"),
+            form_launches=engine.get("form_launches"),
             max_abs_err=worst_err, ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], shapes=timings))
+            library_ms=t["library_ms"], prefill_ms=pf["ms"],
+            prefill_plain_ms=pf["plain_ms"], prefill_bound_ms=pf["bound_ms"],
+            prefill_bound_by=pf["bound_by"],
+            prefill_library_ms=pf["library_ms"], shapes=timings))
     launches = res.get("train", {}).get("launches", {})
     fa_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
     for key, name, replaces, count in (

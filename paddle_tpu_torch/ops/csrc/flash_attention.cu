@@ -45,9 +45,10 @@
 //
 // Where the scale is applied: the backward kernels scale s after the dot
 // (as the TPU kernels do); the CUDA-core forward scales q before its dot
-// (as the TPU forward does), the tensor-core forward, which the bf16
-// training path runs, scales s after its dot (equal up to float32 ulps:
-// the bf16 q stays unrounded for the mma). delta = rowsum(dO * O) (minus
+// (as the TPU forward does), the tensor-core forwards, which the bf16
+// training path runs, scale s after their dot (equal up to float32 ulps:
+// the bf16 q stays unrounded for the mma; K1 folds log2(e) into that
+// multiply and takes exp2). delta = rowsum(dO * O) (minus
 // dlse) is computed by the caller.
 //
 // Layouts: q, o, dO [B, Sq, H, D], k, v [B, Sk, HKV, D], contiguous, read
@@ -77,19 +78,25 @@
 // GQA group, and takes each query head's own band and mask row). Two forms
 // of each kernel, chosen by dtype and head_dim:
 //   - bf16 at head_dim 64 or 128 (the training path): the products run
-//     on the tensor cores through mma.sync (bf16 in, float32 accumulate),
-//     four warps of 16 rows each;
+//     on the tensor cores (bf16 in, float32 accumulate). K1 is a
+//     warp-specialised kernel (fa_fwd_sm90.cuh): a producer warp keeps TMA
+//     loads of 128-key K/V tiles in flight into a two-stage shared ring
+//     (mbarriers), two consumer warpgroups of 64 rows run wgmma on them.
+//     K6, K2 and K3 run mma.sync, four warps of 16 rows each, their tiles
+//     staged synchronously (the ring and wgmma are their next lever);
 //   - float32 (float32 math, no TF32) and head_dim 256: the products run
 //     on the CUDA cores in float32, 256 threads each owning a 4 x 4 block
 //     of scores and a 4 x D/16 block of the accumulator.
-// Neither uses wgmma or TMA yet: a ring of TMA-fed tiles consumed by
-// wgmma is the next lever. Rows and keys past a ragged Sq or Sk are masked
-// in the kernel, so any length is taken.
+// Rows and keys past a ragged Sq or Sk are masked in the kernel, so any
+// length is taken.
+#include <cuda.h>  // CUtensorMap (types only: no driver library is linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -1048,11 +1055,8 @@ __device__ __forceinline__ void fwd_mma(const Params& p) {
   }
 }
 
-template <int D, int kArm>
-__global__ void __launch_bounds__(kMmaThreads)
-    fa_fwd_mma_kernel(const Params p) {
-  fwd_mma<D, kArm>(p);
-}
+// K1's bf16 forward at head_dim 64 and 128: fa_fwd_wgmma_kernel.
+#include "fa_fwd_sm90.cuh"
 
 template <int D, int kArm>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -1408,15 +1412,14 @@ int launch_core(const Params& p, int which, cudaStream_t stream) {
   return kInvalid;
 }
 
-// The tensor-core kernels in arm kArm: bf16 at head_dim 64 and 128.
+// The tensor-core kernels in arm kArm: bf16 at head_dim 64 and 128 (K1 on
+// wgmma, K6, K2 and K3 on mma.sync).
 template <int D, int kArm>
 int launch_mma(const Params& p, int which, cudaStream_t stream) {
   const dim3 qgrid(tiles(p.Sq, kMmaBQ), p.H, p.B);
   const dim3 kgrid(tiles(p.Sk, kMmaBK), p.HKV, p.B);
   if constexpr (!(kArm & kArmMask)) {
-    if (which == kFwd)
-      return launch(fa_fwd_mma_kernel<D, kArm>, qgrid, kMmaThreads,
-                    fwd_mma_smem<D>(kArm), stream, p);
+    if (which == kFwd) return launch_wgmma<D, kArm>(p, stream);
   }
   if constexpr ((kArm & kArmMask) && !(kArm & kArmDrop)) {
     if (which == kStream)

@@ -142,3 +142,32 @@ def test_bf16_plain_forward_rounds_the_probabilities_like_the_oracle():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=2 ** -7,
                                atol=1e-3)
+
+
+def test_k1_bf16_routes_to_the_wgmma_forward_and_k6_keeps_fwd_mma():
+    """On the source (no compiler here): the tensor-core launcher sends
+    K1 (kFwd) to the warp-specialised wgmma forward of fa_fwd_sm90.cuh in
+    every arm, K6 (kStream) still to fwd_mma; bf16 at head_dim 64 and 128
+    take the tensor-core launcher, float32 and head_dim 256 the CUDA-core
+    one."""
+    import re
+    csrc = TK.KERNEL_LIBRARY.source.parent
+    src = TK.KERNEL_LIBRARY.source.read_text()
+    hdr = (csrc / "fa_fwd_sm90.cuh").read_text()
+    assert '#include "fa_fwd_sm90.cuh"' in src
+    assert (csrc / "fa_fwd_sm90.cuh") in TK.KERNEL_LIBRARY.sources()
+    mma = src[src.index("int launch_mma("):src.index("int launch_arm(")]
+    assert re.search(r"which == kFwd\)\s*return launch_wgmma<D, kArm>", mma)
+    assert "fa_fwd_stream_mma_kernel<D, kArm>" in mma
+    assert "fa_fwd_mma_kernel" not in src
+    stream = src[src.index("fa_fwd_stream_mma_kernel(const Params p)"):]
+    assert stream[:200].count("fwd_mma<D, kArm>(p)") == 1
+    for d in (64, 128):
+        assert f"launch_arm<bf16, {d}, true>" in src
+    assert "launch_arm<bf16, 256, false>" in src
+    kernel = hdr[hdr.index("fa_fwd_wgmma_kernel("):]
+    for needle in ("wgmma_ss_n128", "wgmma_pv<D>", "tma_load(", "mbar_wait(",
+                   "keep_of(", "mask_score<kArm"):
+        assert needle in kernel, needle
+    assert "wgmma.mma_async" in hdr and "cp.async.bulk.tensor" in hdr
+

@@ -219,7 +219,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     c = ragged_case(MIXED, seed=12)
     TA.reset_stats()
     torch_ragged(c, scale=0.35)
-    assert TA.stats == {"kernel_launches": 0, "plain_calls": 1}
+    assert TA.stats == {"kernel_launches": 0, "decode_launches": 0,
+                        "tile_launches": 0, "combine_launches": 0,
+                        "plain_calls": 1}
+    # the rectangular entry takes the plain version on CPU tensors too
+    q = torch.from_numpy(c["q"][:2].reshape(2, 1, *c["q"].shape[1:]))
+    k, v = as_torch(c)
+    TA.paged_attention(q, k, v, torch.from_numpy(c["pt"][:2]),
+                       torch.from_numpy(c["cl"][:2]),
+                       torch.from_numpy(c["cl"][:2] - 1), scale=0.35)
+    assert TA.stats["plain_calls"] == 2
+    assert sum(TA.stats.values()) == 2
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_bad_inputs():
@@ -230,9 +240,14 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_bad_inputs():
                                 c["q"].shape[0])
     args = [torch.from_numpy(c["q"]), k, v, torch.from_numpy(c["pt"]),
             torch.from_numpy(c["cl"]), pos, lane]
+    TA.reset_stats()
     with pytest.raises(ValueError, match="CUDA"):
         TA.ragged_paged_attention_cuda(*args, scale=0.35)
+    with pytest.raises(ValueError, match="CUDA"):
+        TA.ragged_paged_attention_cuda(*args, scale=0.35, rows=1)
     with pytest.raises(NotImplementedError):
         TA.ragged_paged_attention(
             args[0], k, v, args[3], args[4], torch.from_numpy(c["ql"]),
             torch.from_numpy(c["qoff"]), scale=0.35, spmd=True)
+    # a refused call launched nothing and counted nothing
+    assert sum(TA.stats.values()) == 0
