@@ -9,7 +9,8 @@ Phases, each of which passes or ends the script with a non-zero code:
 1. The card's name and power limit, the torch/CUDA versions, and the
    build of every kernel from the sources in this checkout (one ``nvcc``
    per source, all started together); the HGMMA (wgmma) instructions in
-   the SASS of K1's forward, counted with ``cuobjdump`` (none fails).
+   the SASS of K1's forward and of K2's and K3's backward, counted with
+   ``cuobjdump`` (none in any of the three fails).
 2. ``kernels``: each hand-written kernel (K5 ragged paged attention in
    its split and tile forms, K1-K3 flash attention forward / dq / dk-dv,
    K4 multi-tensor AdamW) against its plain PyTorch version on the card,
@@ -130,10 +131,16 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+# the flash-attention kernels on TMA + wgmma, by the name in their SASS
+WGMMA_KERNELS = {"K1": "fa_fwd_wgmma_kernel", "K2": "fa_bwd_dq_wgmma_kernel",
+                 "K3": "fa_bwd_dkv_wgmma_kernel"}
+
+
 def hgmma_counts(lib_path):
-    """(HGMMA instructions in K1's forward, ``fa_fwd_wgmma_kernel`` in
-    every instantiation; HGMMA in the library's other kernels) from
-    ``cuobjdump -sass``, or None where the toolkit has no cuobjdump."""
+    """{"K1", "K2", "K3": HGMMA instructions in that kernel (every
+    instantiation, :data:`WGMMA_KERNELS`), "other": HGMMA in the library's
+    other kernels} from ``cuobjdump -sass``, or None where the toolkit has
+    no cuobjdump."""
     import shutil
     tool = next((str(p) for p in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
@@ -143,14 +150,13 @@ def hgmma_counts(lib_path):
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    mine = other = 0
+    counts = dict.fromkeys((*WGMMA_KERNELS, "other"), 0)
     for fn in sass.split("Function : ")[1:]:
-        n = fn.count("HGMMA")
-        if "fa_fwd_wgmma_kernel" in fn.splitlines()[0]:
-            mine += n
-        else:
-            other += n
-    return mine, other
+        name = fn.splitlines()[0]
+        key = next((k for k, v in WGMMA_KERNELS.items() if v in name),
+                   "other")
+        counts[key] += fn.count("HGMMA")
+    return counts
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -774,6 +780,21 @@ def fa_phase(dev="cuda"):
                                             causal=True), iters=5)
     t["dkv"] = cuda_ms(lambda: FK.fa_dkv_cuda(q, k, v, do, lse, delta,
                                               causal=True), iters=5)
+    # K2 and K3 write each gradient row once, with no atomics: two calls
+    # on the same inputs give the same bits
+    once = (FK.fa_dq_cuda(q, k, v, do, lse, delta, causal=True),
+            *FK.fa_dkv_cuda(q, k, v, do, lse, delta, causal=True))
+    twice = (FK.fa_dq_cuda(q, k, v, do, lse, delta, causal=True),
+             *FK.fa_dkv_cuda(q, k, v, do, lse, delta, causal=True))
+    torch.cuda.synchronize()
+    unequal = [n for n, a, b_ in zip(("dq", "dk", "dv"), once, twice)
+               if not torch.equal(a, b_)]
+    if unequal:
+        raise AssertionError(f"K2/K3 give other bits on a second call: "
+                             f"{unequal}")
+    print("kernel check ok: K2 and K3 twice at the training shape, the "
+          "same bits", flush=True)
+    del once, twice
     plain_fwd = cuda_ms(lambda: FK.fa_forward_plain(
         q, k, v, causal=True, return_lse=True), iters=1, warmup=1)
     plain_bwd = cuda_ms(lambda: FK.fa_backward_plain(
@@ -2613,11 +2634,14 @@ def main(argv=None):
         print("sass: no cuobjdump in the toolkit; HGMMA not counted",
               flush=True)
     else:
-        print(f"sass: {hgmma[0]} HGMMA instructions in K1's forward "
-              f"(fa_fwd_wgmma_kernel, every arm and head_dim), {hgmma[1]} "
-              "in the library's other kernels", flush=True)
-        if hgmma[0] == 0:
-            raise AssertionError("K1's forward has no HGMMA in its SASS")
+        print("sass: HGMMA instructions (every arm and head_dim): "
+              + ", ".join(f"{hgmma[k]} in {k} ({v})"
+                          for k, v in WGMMA_KERNELS.items())
+              + f", {hgmma['other']} in the library's other kernels",
+              flush=True)
+        none = [k for k in WGMMA_KERNELS if hgmma[k] == 0]
+        if none:
+            raise AssertionError(f"no HGMMA in the SASS of {none}")
 
     from paddle_tpu_torch.models import GPTConfig, LlamaConfig
     train_cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS,
@@ -2628,7 +2652,7 @@ def main(argv=None):
                                          fuse_linear_cross_entropy=True)
     res = {"card": smi, "torch": torch.__version__,
            "cuda": torch.version.cuda, "build_s": build_s,
-           "k1_hgmma": hgmma, "phase_s": {}}
+           "hgmma": hgmma, "phase_s": {}}
 
     def phase(name, fn, *a, **kw):
         t0 = time.perf_counter()
@@ -2742,6 +2766,10 @@ def kernel_rows(res):
             prefill_library_ms=pf["library_ms"], shapes=timings))
     launches = res.get("train", {}).get("launches", {})
     fa_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    # the bf16 kernels at head_dim 64 and 128 (K6: flash_attention.cu)
+    src_of = {"fwd": "paddle_tpu_torch/ops/csrc/fa_fwd_sm90.cuh",
+              "dq": "paddle_tpu_torch/ops/csrc/fa_bwd_sm90.cuh",
+              "dkv": "paddle_tpu_torch/ops/csrc/fa_bwd_sm90.cuh"}
     for key, name, replaces, count in (
             ("fwd", "flash_attention_fwd",
              "paddle_tpu/ops/pallas/_fa_kernel.py:540", "fwd_launches"),
@@ -2750,7 +2778,7 @@ def kernel_rows(res):
             ("dkv", "flash_attention_bwd_dkv",
              "paddle_tpu/ops/pallas/_fa_kernel.py:862", "dkv_launches")):
         if "fa" in res:
-            rows.append(dict(name=name, route="cuda", source=fa_src,
+            rows.append(dict(name=name, route="cuda", source=src_of[key],
                              replaces=replaces,
                              launches=launches.get(count),
                              **_row_numbers(res["fa"][key])))
@@ -2763,7 +2791,8 @@ def kernel_rows(res):
             ("dkv", "flash_attention_bwd_dkv_masked",
              "paddle_tpu/ops/pallas/_fa_kernel.py:862", "dkv_launches")):
         if "masked" in res:
-            rows.append(dict(name=name, route="cuda", source=fa_src,
+            rows.append(dict(name=name, route="cuda",
+                             source=src_of.get(key, fa_src),
                              replaces=replaces,
                              launches=mistral.get(count),
                              **_row_numbers(res["masked"][key])))
@@ -2789,7 +2818,9 @@ def kernel_rows(res):
              "paddle_tpu/ops/pallas/_fa_kernel.py:257",
              "stream_fwd_launches", unpadded)):
         if "dropseg" in res:
-            rows.append(dict(name=name, route="cuda", source=fa_src,
+            rows.append(dict(name=name, route="cuda",
+                             source=src_of.get(key.rsplit("_", 1)[-1],
+                                               fa_src),
                              replaces=replaces, launches=runs.get(count),
                              **_row_numbers(res["dropseg"][key])))
     if "adamw" in res:

@@ -82,8 +82,13 @@
 //     warp-specialised kernel (fa_fwd_sm90.cuh): a producer warp keeps TMA
 //     loads of 128-key K/V tiles in flight into a two-stage shared ring
 //     (mbarriers), two consumer warpgroups of 64 rows run wgmma on them.
-//     K6, K2 and K3 run mma.sync, four warps of 16 rows each, their tiles
-//     staged synchronously (the ring and wgmma are their next lever);
+//     K2 and K3 (fa_bwd_sm90.cuh) are its siblings: 128 resident rows
+//     (K2 query rows with Q and dO, K3 keys with K and V), 64-row tiles of
+//     the other side streamed through the same kind of ring, both first
+//     products and the accumulating ones on wgmma, the second operand of
+//     the latter read MN-major through the transpose bit. K6 runs
+//     mma.sync, four warps of 16 rows each, its tiles staged
+//     synchronously (the ring and wgmma are its next lever);
 //   - float32 (float32 math, no TF32) and head_dim 256: the products run
 //     on the CUDA cores in float32, 256 threads each owning a 4 x 4 block
 //     of scores and a 4 x D/16 block of the accumulator.
@@ -207,21 +212,24 @@ __device__ __forceinline__ float keep_of(const Params& p, int bh, int r,
 
 // The one masking preamble of K1, K6, K2 and K3 (the TPU file's
 // _masked_scores): the scaled score s of query row r against key c of
-// head h of batch b, or -inf where that pair is masked. cl = c - k0 indexes
-// the bands of the key's tile staged in `bands` ([n_fm][BK], kArmMask
-// only). Rows past Sq and keys past Sk are masked; then causal with the
+// head h of batch b, or -inf where that pair is masked. cl indexes the
+// key's bands in `bands`, band i at i * stride (kArmMask only): c - k0 in
+// the [n_fm][BK] bands of the key's tile staged in shared memory (stride
+// BK), or c in the head's row of the bands in device memory (stride
+// f_band). Rows past Sq and keys past Sk are masked; then causal with the
 // diagonal at Sk - Sq; then each band [start, end) of column c; then the
 // additive mask is added; then the segment ids must be equal and
 // non-negative.
 template <int kArm, int BK>
 __device__ __forceinline__ float mask_score(const Mask& mk, const int* bands,
                                             float s, int b, int h, int r,
-                                            int c, int cl, int Sq, int Sk) {
+                                            int c, int cl, int Sq, int Sk,
+                                            long long stride = BK) {
   if (r >= Sq || c >= Sk || (mk.causal && c > r + mk.offset))
     return -INFINITY;
   if (kArm & kArmMask) {
     for (int i = 0; i < mk.n_fm; i += 2)
-      if (r >= bands[i * BK + cl] && r < bands[(i + 1) * BK + cl])
+      if (r >= bands[i * stride + cl] && r < bands[(i + 1) * stride + cl])
         return -INFINITY;
     if (mk.add != nullptr)
       s += mk.add[b * mk.a_b + h * mk.a_h + r * mk.a_r + c * mk.a_c];
@@ -235,13 +243,15 @@ __device__ __forceinline__ float mask_score(const Mask& mk, const int* bands,
 }
 
 // The bands of keys [k0, k0 + BK) for query head h of batch b into dst
-// [n_fm][BK] (K3 stages them once per query head). A key past Sk gets a
-// band over every row: it is masked anyway.
+// [n_fm][BK], by NT threads, this one `tid` (K3 stages them once per query
+// head: the CUDA-core K3 for its mask_score, the wgmma K3's producer warp
+// for its tile flags). A key past Sk gets a band over every row: it is
+// masked anyway.
 template <int BK, int NT>
 __device__ __forceinline__ void stage_bands(int* dst, const Mask& mk, int b,
-                                            int h, int k0, int Sk) {
+                                            int h, int k0, int Sk, int tid) {
   const int* f = mk.fm + b * mk.f_b + h * mk.f_h;
-  for (int idx = threadIdx.x; idx < mk.n_fm * BK; idx += NT) {
+  for (int idx = tid; idx < mk.n_fm * BK; idx += NT) {
     const int i = idx / BK, c = k0 + idx % BK;
     dst[idx] = c < Sk ? f[i * mk.f_band + c] : (i % 2 == 0 ? INT_MIN : INT_MAX);
   }
@@ -303,17 +313,27 @@ __device__ __forceinline__ void key_flags(TileFlags& fl, const Mask& mk,
                                           const int* kb, int stride, int b,
                                           int c, int q0, int q1, int Sq,
                                           int Sk, QSpan qsp) {
-  if (c >= Sk) {
+  // every load first, with no branch before them, so that their latencies
+  // overlap (a producer warp tests a tile's keys while the consumers wait
+  // for it)
+  const bool in = c < Sk;
+  int bd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) bd[i] = in && i < mk.n_fm ? kb[i * stride] : 0;
+  const int ks = in && mk.qseg != nullptr
+                     ? mk.kseg[static_cast<long long>(b) * Sk + c]
+                     : 0;
+  if (!in) {
     fl.clear = false;
     return;
   }
-  fl.cover = mk.n_fm > 0 && kb[0] <= q0 && kb[stride] >= q1;
-  for (int i = 0; i < mk.n_fm; i += 2) {
-    const int st = kb[i * stride], en = kb[(i + 1) * stride];
-    fl.clear = fl.clear && (st >= q1 || en <= q0 || st >= en);
-  }
+  fl.cover = mk.n_fm > 0 && bd[0] <= q0 && bd[1] >= q1;
+#pragma unroll
+  for (int i = 0; i < 4; i += 2)
+    if (i < mk.n_fm)
+      fl.clear = fl.clear && (bd[i] >= q1 || bd[i + 1] <= q0 ||
+                              bd[i] >= bd[i + 1]);
   if (mk.qseg != nullptr) {
-    const int ks = mk.kseg[static_cast<long long>(b) * Sk + c];
     const bool inside = ks >= qsp.lo && ks <= qsp.hi;
     const bool all = inside && qsp.lo == qsp.hi && ks >= 0;
     bool any = inside && qsp.lo == qsp.hi;
@@ -710,7 +730,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
     const long long st = (static_cast<long long>(b) * H + h) * Sq;
     if ((kArm & kArmMask) && p.mk.n_fm > 0) {
       __syncthreads();  // the last head's readers of the bands are done
-      stage_bands<BK, kThreads>(bands, p.mk, b, h, k0, Sk);
+      stage_bands<BK, kThreads>(bands, p.mk, b, h, k0, Sk, threadIdx.x);
       __syncthreads();
     }
     for (int qt = qt0; qt < n_qt; ++qt) {
@@ -822,16 +842,17 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
 }
 
 // -- the tensor-core path: bf16, head_dim 64 or 128 ---------------------------
-// The same four functions with every product on mma.sync.m16n8k16 (bf16
-// in, float32 accumulate). 128 threads, four warps; each warp owns 16 rows
-// of the block's tile (query rows in K1/K6/K2, key rows in K3) and keeps its
-// accumulators in the mma fragment layout: thread (g = lane / 4, t = lane
-// % 4) holds rows g and g + 8, columns 2t and 2t + 1 of each 8-wide tile.
-// Probabilities and ds are rounded to bf16 for the second product of each
-// pair (p V, ds K, p^T dO, ds^T Q); scores, softmax statistics and every
-// sum stay float32. Tiles are staged in shared memory as bf16, rows padded
-// by 8 elements so the fragment loads hit 32 distinct banks; an operand
-// that the mma reads along its other axis is staged transposed.
+// K6 with every product on mma.sync.m16n8k16 (bf16 in, float32
+// accumulate). 128 threads, four warps; each warp owns 16 query rows of the
+// block's tile and keeps its accumulators in the mma fragment layout:
+// thread (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t and
+// 2t + 1 of each 8-wide tile (the wgmma accumulators of K1-K3 hold the same
+// elements per 16-row warp slice). Probabilities are rounded to bf16 for
+// p V, as K1-K3 round p and ds for their second products; scores, softmax
+// statistics and every sum stay float32. Tiles are staged in shared memory
+// as bf16, rows padded by 8 elements so the fragment loads hit 32 distinct
+// banks; V, which the mma reads along its other axis, is staged
+// transposed.
 
 typedef __nv_bfloat16 bf16;
 
@@ -927,7 +948,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-constexpr int kMmaBQ = 64, kMmaBK = 64, kMmaBQ3 = 32;
+constexpr int kMmaBQ = 64, kMmaBK = 64;
 
 template <int D, int kArm>
 __device__ __forceinline__ void fwd_mma(const Params& p) {
@@ -1055,274 +1076,16 @@ __device__ __forceinline__ void fwd_mma(const Params& p) {
   }
 }
 
-// K1's bf16 forward at head_dim 64 and 128: fa_fwd_wgmma_kernel.
+// K1's bf16 forward at head_dim 64 and 128: fa_fwd_wgmma_kernel; K2's
+// and K3's bf16 backward at head_dim 64 and 128: fa_bwd_dq_wgmma_kernel,
+// fa_bwd_dkv_wgmma_kernel.
 #include "fa_fwd_sm90.cuh"
+#include "fa_bwd_sm90.cuh"
 
 template <int D, int kArm>
 __global__ void __launch_bounds__(kMmaThreads)
     fa_fwd_stream_mma_kernel(const Params p) {
   fwd_mma<D, kArm>(p);
-}
-
-template <int D, int kArm>
-__global__ void __launch_bounds__(kMmaThreads)
-    fa_bwd_dq_mma_kernel(const Params p) {
-  constexpr int BQ = kMmaBQ, BK = kMmaBK, LD = D + 8, LDT = BK + 8;
-  constexpr int KS = D / 16, NK = BK / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* dOs = Qs + BQ * LD;                       // [BQ][LD]
-  bf16* Ks = dOs + BQ * LD;                       // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                        // [BK][LD]
-  bf16* Kt = Vs + BK * LD;                        // [D][LDT]  K transposed
-  int* bands = reinterpret_cast<int*>(Kt + D * LDT);  // [n_fm][BK]
-
-  const bf16* __restrict__ q = static_cast<const bf16*>(p.q);
-  const bf16* __restrict__ k = static_cast<const bf16*>(p.k);
-  const bf16* __restrict__ v = static_cast<const bf16*>(p.v);
-  const bf16* __restrict__ dout = static_cast<const bf16*>(p.dout);
-  bf16* __restrict__ dq = static_cast<bf16*>(p.out0);
-  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
-  const float scale = p.scale;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int q1 = min(q0 + BQ, Sq);
-  const int hk = h / (H / HKV);
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
-            t = threadIdx.x % 4;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  stage<D, BQ, false>(Qs, q, b, q0, h, Sq, H);
-  stage<D, BQ, false>(dOs, dout, b, q0, h, Sq, H);
-  const long long st = (static_cast<long long>(b) * H + h) * Sq;
-  const float lse0 = r0 < Sq ? p.lse_in[st + r0] : 0.f;
-  const float lse1 = r1 < Sq ? p.lse_in[st + r1] : 0.f;
-  const float del0 = r0 < Sq ? p.delta[st + r0] : 0.f;
-  const float del1 = r1 < Sq ? p.delta[st + r1] : 0.f;
-  const bf16* Qw = Qs + warp * 16 * LD;
-  const bf16* dOw = dOs + warp * 16 * LD;
-
-  float dqa[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-
-  const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
-  const int n_kt = k_tiles(p.mk, q1, BK, Sk);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    TileFlags fl{false, false};
-    if (tile_tested(kArm)) {
-      fl = stage_key_flags<BK>(bands, p.mk, b, h, k0, Sq, Sk, q0, q1, BQ,
-                               qsp);
-      if (__syncthreads_and(fl.cover)) continue;  // a dead tile
-    }
-    stage<D, BK, false>(Ks, k, b, k0, hk, Sk, HKV);
-    stage<D, BK, false>(Vs, v, b, k0, hk, Sk, HKV);
-    stage<D, BK, true>(Kt, k, b, k0, hk, Sk, HKV);
-    const bool interior = sync_interior<kArm>(fl.clear);
-
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      load_a(a, Qw, LD, kk * 16);
-      mma_rows<NK>(s, a, Ks, LD, kk * 16);
-      load_a(a, dOw, LD, kk * 16);
-      mma_rows<NK>(dp, a, Vs, LD, kk * 16);
-    }
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = j * 8 + 2 * t + (e & 1);
-        const float sc = s[j][e] * scale;
-        const float x =
-            interior ? sc
-                     : mask_score<kArm, BK>(p.mk, bands, sc, b, h,
-                                            e < 2 ? r0 : r1, k0 + cl, cl, Sq,
-                                            Sk);
-        const float pr = isfinite(x) ? expf(x - (e < 2 ? lse0 : lse1)) : 0.f;
-        const float dpk =
-            (kArm & kArmDrop)
-                ? dp[j][e] * keep_of(p, b * H + h, e < 2 ? r0 : r1, k0 + cl)
-                : dp[j][e];
-        s[j][e] = pr * (dpk - (e < 2 ? del0 : del1));  // ds
-      }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      mma_rows<ND>(dqa, a, Kt, LDT, kk * 16);
-    }
-  }
-
-  if (r0 < Sq) {
-    bf16* row = dq + row_off(b, r0, h, Sq, H, D) + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16(dqa[n][0] * scale, dqa[n][1] * scale);
-  }
-  if (r1 < Sq) {
-    bf16* row = dq + row_off(b, r1, h, Sq, H, D) + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16(dqa[n][2] * scale, dqa[n][3] * scale);
-  }
-}
-
-// One block per (64-key tile, kv head, batch); each warp owns 16 keys and
-// computes the transposed scores s^T = K Q^T of its keys against a 32-row
-// q tile, looping over the G query heads (each with its own band and mask
-// rows) and the live q tiles from the diagonal on, dk and dv in registers.
-template <int D, int kArm>
-__global__ void __launch_bounds__(kMmaThreads)
-    fa_bwd_dkv_mma_kernel(const Params p) {
-  constexpr int BQ = kMmaBQ3, BK = kMmaBK, LD = D + 8, LDT = BQ + 8;
-  constexpr int KS = D / 16, NQ = BQ / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                        // [BK][LD]
-  bf16* Qs = Vs + BK * LD;                        // [BQ][LD]
-  bf16* dOs = Qs + BQ * LD;                       // [BQ][LD]
-  bf16* Qt = dOs + BQ * LD;                       // [D][LDT]  Q transposed
-  bf16* dOt = Qt + D * LDT;                       // [D][LDT]  dO transposed
-  float* lse_s = reinterpret_cast<float*>(dOt + D * LDT);  // [BQ]
-  float* del_s = lse_s + BQ;                                 // [BQ]
-  int* bands = reinterpret_cast<int*>(del_s + BQ);  // [n_fm][BK]
-
-  const bf16* __restrict__ q = static_cast<const bf16*>(p.q);
-  const bf16* __restrict__ k = static_cast<const bf16*>(p.k);
-  const bf16* __restrict__ v = static_cast<const bf16*>(p.v);
-  const bf16* __restrict__ dout = static_cast<const bf16*>(p.dout);
-  bf16* __restrict__ dk = static_cast<bf16*>(p.out0);
-  bf16* __restrict__ dv = static_cast<bf16*>(p.out1);
-  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
-  const float scale = p.scale;
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const int G = H / HKV;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
-            t = threadIdx.x % 4;
-  const int c0 = k0 + warp * 16 + g, c1 = c0 + 8;  // this thread's keys
-  stage<D, BK, false>(Ks, k, b, k0, hk, Sk, HKV);
-  stage<D, BK, false>(Vs, v, b, k0, hk, Sk, HKV);
-  const bf16* Kw = Ks + warp * 16 * LD;
-  const bf16* Vw = Vs + warp * 16 * LD;
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  const int qt0 = first_q_tile(p.mk, k0, BQ);
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const long long st = (static_cast<long long>(b) * H + h) * Sq;
-    if ((kArm & kArmMask) && p.mk.n_fm > 0) {
-      __syncthreads();  // the last head's readers of the bands are done
-      stage_bands<BK, kMmaThreads>(bands, p.mk, b, h, k0, Sk);
-      __syncthreads();
-    }
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ, q1 = min(q0 + BQ, Sq);
-      TileFlags fl{false, false};
-      if (tile_tested(kArm)) {
-        fl = tile_flags(p.mk, q0, q1, BQ, k0, BK, Sk);
-        const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
-        const int cl = threadIdx.x;
-        if (cl < BK)
-          key_flags(fl, p.mk, bands + cl, BK, b, k0 + cl, q0, q1, Sq, Sk,
-                    qsp);
-        // also the barrier after the last q tile's readers
-        if (__syncthreads_and(fl.cover)) continue;  // a dead tile
-      } else {
-        __syncthreads();
-      }
-      stage<D, BQ, false>(Qs, q, b, q0, h, Sq, H);
-      stage<D, BQ, false>(dOs, dout, b, q0, h, Sq, H);
-      stage<D, BQ, true>(Qt, q, b, q0, h, Sq, H);
-      stage<D, BQ, true>(dOt, dout, b, q0, h, Sq, H);
-      for (int r = threadIdx.x; r < BQ; r += kMmaThreads) {
-        lse_s[r] = q0 + r < Sq ? p.lse_in[st + q0 + r] : 0.f;
-        del_s[r] = q0 + r < Sq ? p.delta[st + q0 + r] : 0.f;
-      }
-      const bool interior = sync_interior<kArm>(fl.clear);
-
-      float s[NQ][4], dp[NQ][4];  // s^T and dp^T: rows keys, columns q
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t a[4];
-        load_a(a, Kw, LD, kk * 16);
-        mma_rows<NQ>(s, a, Qs, LD, kk * 16);
-        load_a(a, Vw, LD, kk * 16);
-        mma_rows<NQ>(dp, a, dOs, LD, kk * 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = j * 8 + 2 * t + (e & 1);
-          const int c = e < 2 ? c0 : c1;
-          const float sc = s[j][e] * scale;
-          const float x =
-              interior ? sc
-                       : mask_score<kArm, BK>(p.mk, bands, sc, b, h, q0 + ql,
-                                              c, c - k0, Sq, Sk);
-          const float pr = isfinite(x) ? expf(x - lse_s[ql]) : 0.f;
-          if (kArm & kArmDrop) {
-            // the query head's own b * H + h, as _fa_kernel.py:676-679
-            const float ks = keep_of(p, b * H + h, q0 + ql, c);
-            s[j][e] = pr * ks;
-            dp[j][e] = pr * (dp[j][e] * ks - del_s[ql]);  // ds^T
-          } else {
-            s[j][e] = pr;
-            dp[j][e] = pr * (dp[j][e] - del_s[ql]);  // ds^T
-          }
-        }
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t a[4];
-        c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-        mma_rows<ND>(dva, a, dOt, LDT, kk * 16);
-        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-        mma_rows<ND>(dka, a, Qt, LDT, kk * 16);
-      }
-    }
-  }
-
-  if (c0 < Sk) {
-    bf16* krow = dk + row_off(b, c0, hk, Sk, HKV, D) + 2 * t;
-    bf16* vrow = dv + row_off(b, c0, hk, Sk, HKV, D) + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(krow + n * 8) =
-          pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(vrow + n * 8) =
-          pack_bf16(dva[n][0], dva[n][1]);
-    }
-  }
-  if (c1 < Sk) {
-    bf16* krow = dk + row_off(b, c1, hk, Sk, HKV, D) + 2 * t;
-    bf16* vrow = dv + row_off(b, c1, hk, Sk, HKV, D) + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(krow + n * 8) =
-          pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(vrow + n * 8) =
-          pack_bf16(dva[n][2], dva[n][3]);
-    }
-  }
 }
 
 // -- launches ----------------------------------------------------------------
@@ -1355,17 +1118,6 @@ constexpr int fwd_mma_smem(int arm) {
   return 2 * ((kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8)) +
          band_smem(kMmaBK, arm);
 }
-template <int D>
-constexpr int dq_mma_smem(int arm) {
-  return 2 * (2 * (kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8)) +
-         band_smem(kMmaBK, arm);
-}
-template <int D>
-constexpr int dkv_mma_smem(int arm) {
-  return 2 * (2 * (kMmaBK + kMmaBQ3) * (D + 8) + 2 * D * (kMmaBQ3 + 8)) +
-         4 * 2 * kMmaBQ3 + band_smem(kMmaBK, arm);
-}
-
 // K1 and K6 are the two forward kernels; K2 and K3 take the arm of their
 // call.
 enum Which { kFwd = 0, kStream = 1, kDq = 2, kDkv = 3 };
@@ -1412,12 +1164,11 @@ int launch_core(const Params& p, int which, cudaStream_t stream) {
   return kInvalid;
 }
 
-// The tensor-core kernels in arm kArm: bf16 at head_dim 64 and 128 (K1 on
-// wgmma, K6, K2 and K3 on mma.sync).
+// The tensor-core kernels in arm kArm: bf16 at head_dim 64 and 128 (K1,
+// K2 and K3 on TMA + wgmma, K6 on mma.sync).
 template <int D, int kArm>
 int launch_mma(const Params& p, int which, cudaStream_t stream) {
   const dim3 qgrid(tiles(p.Sq, kMmaBQ), p.H, p.B);
-  const dim3 kgrid(tiles(p.Sk, kMmaBK), p.HKV, p.B);
   if constexpr (!(kArm & kArmMask)) {
     if (which == kFwd) return launch_wgmma<D, kArm>(p, stream);
   }
@@ -1426,12 +1177,8 @@ int launch_mma(const Params& p, int which, cudaStream_t stream) {
       return launch(fa_fwd_stream_mma_kernel<D, kArm>, qgrid, kMmaThreads,
                     fwd_mma_smem<D>(kArm), stream, p);
   }
-  if (which == kDq)
-    return launch(fa_bwd_dq_mma_kernel<D, kArm>, qgrid, kMmaThreads,
-                  dq_mma_smem<D>(kArm), stream, p);
-  if (which == kDkv)
-    return launch(fa_bwd_dkv_mma_kernel<D, kArm>, kgrid, kMmaThreads,
-                  dkv_mma_smem<D>(kArm), stream, p);
+  if (which == kDq || which == kDkv)
+    return launch_bwd_wgmma<D, kArm>(p, which == kDq, stream);
   return kInvalid;
 }
 

@@ -36,8 +36,12 @@ def variant_library():
     if src.count(_CLEAR) != 1:
         raise RuntimeError("tile_flags's interior test not found in "
                            f"{FK.KERNEL_LIBRARY.source}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = BUILD_DIR / "flash_attention_no_interior.cu"
+    # beside copies of the headers it includes, which resolve relative to it
+    out = BUILD_DIR / "no_interior"
+    out.mkdir(parents=True, exist_ok=True)
+    for header in FK.KERNEL_LIBRARY.sources()[1:]:
+        (out / header.name).write_text(header.read_text())
+    path = out / "flash_attention.cu"
     path.write_text(src.replace(_CLEAR, _NEVER))
     return KernelLibrary(path, FK.KERNEL_LIBRARY.declare)
 

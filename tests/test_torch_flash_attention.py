@@ -166,8 +166,58 @@ def test_k1_bf16_routes_to_the_wgmma_forward_and_k6_keeps_fwd_mma():
         assert f"launch_arm<bf16, {d}, true>" in src
     assert "launch_arm<bf16, 256, false>" in src
     kernel = hdr[hdr.index("fa_fwd_wgmma_kernel("):]
-    for needle in ("wgmma_ss_n128", "wgmma_pv<D>", "tma_load(", "mbar_wait(",
-                   "keep_of(", "mask_score<kArm"):
+    for needle in ("wgmma_ss_n128", "wgmma_pv<D>", "tma_rows<D>(",
+                   "mbar_wait(", "keep_of(", "mask_score<kArm"):
         assert needle in kernel, needle
-    assert "wgmma.mma_async" in hdr and "cp.async.bulk.tensor" in hdr
+    # the asm lives in the Hopper building blocks K1 shares with K2/K3
+    sm90 = (csrc / "sm90.cuh").read_text()
+    assert '#include "sm90.cuh"' in hdr
+    assert "wgmma.mma_async" in sm90 and "cp.async.bulk.tensor" in sm90
 
+
+
+def test_k2_k3_bf16_route_to_the_wgmma_backward_and_k6_keeps_fwd_mma():
+    """On the source (no compiler here): the tensor-core launcher sends K2
+    (kDq) and K3 (kDkv) to the TMA + wgmma kernels of fa_bwd_sm90.cuh in
+    every arm; the mma.sync backward kernels and their shared-memory sizes
+    are gone; the new header and the Hopper building blocks it shares with
+    K1 are among the library's sources, so an edit to either rebuilds it;
+    K6 (kStream) still reaches fwd_mma."""
+    import re
+    csrc = TK.KERNEL_LIBRARY.source.parent
+    src = TK.KERNEL_LIBRARY.source.read_text()
+    hdr = (csrc / "fa_bwd_sm90.cuh").read_text()
+    sm90 = (csrc / "sm90.cuh").read_text()
+    assert '#include "fa_bwd_sm90.cuh"' in src
+    sources = TK.KERNEL_LIBRARY.sources()
+    for name in ("fa_bwd_sm90.cuh", "fa_fwd_sm90.cuh", "sm90.cuh"):
+        assert (csrc / name) in sources, name
+    mma = src[src.index("int launch_mma("):src.index("int launch_arm(")]
+    assert re.search(r"which == kDq \|\| which == kDkv\)\s*return "
+                     r"launch_bwd_wgmma<D, kArm>\(p, which == kDq, stream\)",
+                     mma)
+    assert "fa_fwd_stream_mma_kernel<D, kArm>" in mma
+    stream = src[src.index("fa_fwd_stream_mma_kernel(const Params p)"):]
+    assert stream[:200].count("fwd_mma<D, kArm>(p)") == 1
+    for gone in ("fa_bwd_dq_mma_kernel", "fa_bwd_dkv_mma_kernel",
+                 "dq_mma_smem", "dkv_mma_smem", "kMmaBQ3"):
+        assert gone not in src and gone not in hdr, gone
+    launch = hdr[hdr.index("int launch_bwd_wgmma("):]
+    for kernel in ("fa_bwd_dq_wgmma_kernel", "fa_bwd_dkv_wgmma_kernel"):
+        assert f"{kernel}<D, kArm>" in launch
+        body = hdr[hdr.index(f"{kernel}(const Params p"):]
+        body = body[:body.index("\n}\n")]
+        for needle in ("tma_rows<D>(", "mbar_wait(", "wgmma_rows<D>(",
+                       "wgmma_pv<D>(", "bwd_prob<kArm", "keep_of(",
+                       "producer_regs", "consumer_regs"):
+            assert needle in body, (kernel, needle)
+    prob = hdr[hdr.index("float bwd_prob("):]
+    assert "mask_score<kArm" in prob[:prob.index("\n}\n")]
+    assert "tma_load(" in sm90[sm90.index("void tma_rows("):]
+    assert "wgmma.mma_async" in sm90 and "cp.async.bulk.tensor" in sm90
+    # the helpers live in one place: neither header defines them again
+    for helper in ("void mbar_wait(", "void tma_load(", "uint64_t wg_desc(",
+                   "bool tensor_map("):
+        assert sm90.count(helper) == 1, helper
+        assert helper not in hdr and helper not in (
+            csrc / "fa_fwd_sm90.cuh").read_text(), helper
