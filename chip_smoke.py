@@ -9,8 +9,8 @@ Phases, each of which passes or ends the script with a non-zero code:
 1. The card's name and power limit, the torch/CUDA versions, and the
    build of every kernel from the sources in this checkout (one ``nvcc``
    per source, all started together); the HGMMA (wgmma) instructions in
-   the SASS of K1's forward and of K2's and K3's backward, counted with
-   ``cuobjdump`` (none in any of the three fails).
+   the SASS of K1's and K6's forward and of K2's and K3's backward,
+   counted with ``cuobjdump`` (none in any of the four fails).
 2. ``kernels``: each hand-written kernel (K5 ragged paged attention in
    its split and tile forms, K1-K3 flash attention forward / dq / dk-dv,
    K4 multi-tensor AdamW) against its plain PyTorch version on the card,
@@ -29,7 +29,8 @@ Phases, each of which passes or ends the script with a non-zero code:
    band with dead rows, C=4, the additive mask in two broadcast forms,
    causal Sq 1024 against Sk 3072, float32, D 64 and D 256; dead rows
    exact; five planted faults rejected; timed at Mistral's training
-   shape (B 2, S 8192, window 4096).
+   shape (B 2, S 8192, window 4096), K6 also on the packed phase's
+   documents folded into the window.
 4. ``dropseg``: the segment-id and counter-hash dropout arms of K1-K3
    and K6's segment arm the same way: the keep pattern read straight
    off K1's out, K2's dq and K3's dv (per query head of a GQA group) and
@@ -133,11 +134,12 @@ def nvidia_smi_line():
 
 # the flash-attention kernels on TMA + wgmma, by the name in their SASS
 WGMMA_KERNELS = {"K1": "fa_fwd_wgmma_kernel", "K2": "fa_bwd_dq_wgmma_kernel",
-                 "K3": "fa_bwd_dkv_wgmma_kernel"}
+                 "K3": "fa_bwd_dkv_wgmma_kernel",
+                 "K6": "fa_fwd_stream_wgmma_kernel"}
 
 
 def hgmma_counts(lib_path):
-    """{"K1", "K2", "K3": HGMMA instructions in that kernel (every
+    """{"K1", "K2", "K3", "K6": HGMMA instructions in that kernel (every
     instantiation, :data:`WGMMA_KERNELS`), "other": HGMMA in the library's
     other kernels} from ``cuobjdump -sass``, or None where the toolkit has
     no cuobjdump."""
@@ -963,23 +965,29 @@ def masked_faults(q, k, v, do, causal, fm, want, tile=64):
     return faults
 
 
-def masked_work(b, sq, sk, h, hkv, d, pairs, itemsize, n_fm=2):
+def masked_work(b, sq, sk, h, hkv, d, pairs, itemsize, n_fm=2,
+                band_rows=1):
     """(bytes, flops) of K6, K2 and K3 on ``pairs`` live (row, key) pairs:
     each input read once and each output written once, the bands
-    ([n_fm, 1, 1, Sk] int32) with them."""
+    (``n_fm`` of ``band_rows`` x Sk int32) with them."""
     qo = b * sq * h * d * itemsize
     kv = b * sk * hkv * d * itemsize
     rows = 4 * b * h * sq
-    bands = 4 * n_fm * sk
+    bands = 4 * n_fm * band_rows * sk
     return {"stream": (2 * qo + 2 * kv + rows + bands, 4 * d * pairs),
             "dq": (3 * qo + 2 * kv + 2 * rows + bands, 6 * d * pairs),
             "dkv": (2 * qo + 4 * kv + 2 * rows + bands, 8 * d * pairs)}
 
 
-def window_pairs(s, window):
-    """Live (row, key) pairs of one head under causal attention with a
-    window: row r sees min(r + 1, window) keys."""
-    return sum(min(r + 1, window) for r in range(s))
+def band_keep(fm, s):
+    """The pairs causal attention under the bands ``fm = (start, end)``
+    ``[B|1, 1, S]`` keeps: bool ``[B|1, 1, S, S]`` (row r sees key c <= r
+    unless start_c <= r < end_c)."""
+    import torch
+    start, end = fm
+    r = torch.arange(s, device=start.device)[:, None]
+    c = torch.arange(s, device=start.device)[None, :]
+    return (c <= r) & ~((r >= start[..., None, :]) & (r < end[..., None, :]))
 
 
 def masked_check(name, q, k, v, do, kw, got, want):
@@ -1129,8 +1137,9 @@ def masked_fa_phase(dev="cuda"):
             torch.cuda.empty_cache()
         del out, lse, grads, got_all, w_out, w_lse
 
-    # times at the same shape, the window's bands
-    fm = masked_train_cases(dev)[0][1]
+    # times at the same shape, the window's bands (and K6 alone on the
+    # packed documents folded into the window, below)
+    (_, fm), (_, packed_fm) = masked_train_cases(dev)
     out, lse = FK.fa_forward_masked_cuda(q, k, v, causal=True,
                                          return_lse=True, fm=fm)
     delta = FK._delta(out, do, None)
@@ -1149,25 +1158,47 @@ def masked_fa_phase(dev="cuda"):
     plain_bwd = cuda_ms(lambda: [FK.fa_backward_plain(
         q1, k1, v1, o1, l1, do1, causal=True, fm=fm)
         for q1, k1, v1, do1, o1, l1 in rows_], iters=1, warmup=1)
+    t["stream_packed"] = cuda_ms(lambda: FK.fa_forward_masked_cuda(
+        q, k, v, causal=True, return_lse=True, fm=packed_fm), iters=5)
+    plain_packed = cuda_ms(lambda: [FK.fa_forward_plain(
+        q1, k1, v1, causal=True, return_lse=True,
+        fm=tuple(row(x, i) for x in packed_fm))
+        for i, (q1, k1, v1, *_) in enumerate(rows_)], iters=1, warmup=1)
     del rows_
     torch.cuda.empty_cache()
-    lib = library_band_ms(q, k, v, do, MISTRAL_WINDOW)
-    pairs = b * h * window_pairs(s, MISTRAL_WINDOW)
+    # the live pairs of each band form and SDPA's bool mask for it (the
+    # window's bands, [1, 1, S], hold for every batch row)
+    keep = band_keep(fm, s)
+    pairs = b * h * int(keep.sum())
+    lib = library_band_ms(q, k, v, do, keep)
+    keep = band_keep(packed_fm, s)
+    packed_pairs = h * int(keep.sum())
+    lib_packed = library_band_ms(q, k, v, do, keep, bwd=False)
+    del keep
     work = masked_work(b, s, s, h, hkv, d, pairs, q.element_size())
+    work["stream_packed"] = masked_work(b, s, s, h, hkv, d, packed_pairs,
+                                        q.element_size(),
+                                        band_rows=b)["stream"]
     rows = {}
-    for key, plain_ms, lib_ms in (("stream", plain_fwd, lib["fwd"]),
-                                  ("dq", plain_bwd, lib["bwd"]),
-                                  ("dkv", plain_bwd, lib["bwd"])):
+    for key, plain_ms, lib_ms, what, n in (
+            ("stream", plain_fwd, lib["fwd"], f"window {MISTRAL_WINDOW}",
+             pairs),
+            ("dq", plain_bwd, lib["bwd"], f"window {MISTRAL_WINDOW}", pairs),
+            ("dkv", plain_bwd, lib["bwd"], f"window {MISTRAL_WINDOW}",
+             pairs),
+            ("stream_packed", plain_packed, lib_packed["fwd"],
+             "packed documents + window", packed_pairs)):
         nbytes, flops = work[key]
         bound_ms, bound_by = bound(nbytes, flops)
         rows[key] = dict(ms=t[key], plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                         flops=flops, pairs=pairs, max_abs_err=worst[key])
+                         flops=flops, pairs=n,
+                         max_abs_err=worst[key.split("_")[0]])
         print(f"kernel time masked {key}: B,S,H,HKV,D={MASKED_TRAIN_SHAPE} "
-              f"causal window {MISTRAL_WINDOW} bf16: kernel {t[key]:.4f} ms, "
+              f"causal {what} bf16: kernel {t[key]:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} flop, "
-              f"{pairs} live pairs)", flush=True)
+              f"{n} live pairs)", flush=True)
     print("kernel time masked: max_abs_err is the largest at the training "
           "shape; the plain version runs one batch row a call; the plain "
           "and sdpa backward times compute dq, dk and dv together; "
@@ -1176,20 +1207,17 @@ def masked_fa_phase(dev="cuda"):
     return rows
 
 
-def library_band_ms(q, k, v, do, window):
-    """SDPA's memory-efficient backend with the boolean band mask on the
+def library_band_ms(q, k, v, do, keep, bwd=True):
+    """SDPA's memory-efficient backend with the boolean mask ``keep``
+    (``[S, S]`` or ``[B, 1, S, S]``, True where a pair is kept) on the
     same tensors seen as [B,H,S,D] (K/V repeated to the query heads):
-    forward and backward ms, the yardstick the port never calls. None
-    where the backend refuses the shape."""
+    forward and (``bwd``) backward ms, the yardstick the port never
+    calls. None where the backend refuses the shape."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    s = q.shape[1]
     g = q.shape[2] // k.shape[2]
-    pos = torch.arange(s, device=q.device)
-    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                             - window)
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).detach()
               .requires_grad_() for x in (k, v))
@@ -1197,13 +1225,16 @@ def library_band_ms(q, k, v, do, window):
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=keep), iters=3)
-            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
-            dot = do.transpose(1, 2)
-            bwd = cuda_ms(lambda: torch.autograd.grad(
-                out, (qt, kt, vt), dot, retain_graph=True), iters=2)
-        return {"fwd": fwd, "bwd": bwd,
+            bwd_ms = None
+            if bwd:
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=keep)
+                dot = do.transpose(1, 2)
+                bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True), iters=2)
+        return {"fwd": fwd, "bwd": bwd_ms,
                 "note": "sdpa = the memory-efficient backend with the "
-                        "[S, S] bool band mask, K/V repeated to 32 heads"}
+                        "bool band mask, K/V repeated to 32 heads"}
     except RuntimeError as e:   # the yardstick only: the port never calls it
         return {"fwd": None, "bwd": None,
                 "note": f"sdpa's memory-efficient backend refused: {e}"}
@@ -2738,7 +2769,8 @@ PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
 
 def kernel_rows(res):
     """The ``kernels`` JSON rows: K5, K1, K2, K3, K6 and the masked arms
-    of K2/K3 (launches from the Mistral run), the segment + dropout arms
+    of K2/K3 (launches from the Mistral run), K6 on the packed documents
+    + window (launches from the packed run), the segment + dropout arms
     of K1-K3 (launches from the GPT run), their segment arms alone and
     K6's (launches from the ``flash_attn_unpadded`` drive), K4, each with
     its launches on its path's counted run and this run's
@@ -2765,9 +2797,9 @@ def kernel_rows(res):
             prefill_bound_by=pf["bound_by"],
             prefill_library_ms=pf["library_ms"], shapes=timings))
     launches = res.get("train", {}).get("launches", {})
-    fa_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
-    # the bf16 kernels at head_dim 64 and 128 (K6: flash_attention.cu)
-    src_of = {"fwd": "paddle_tpu_torch/ops/csrc/fa_fwd_sm90.cuh",
+    # the bf16 kernels at head_dim 64 and 128
+    fwd_src = "paddle_tpu_torch/ops/csrc/fa_fwd_sm90.cuh"
+    src_of = {"fwd": fwd_src, "stream": fwd_src,
               "dq": "paddle_tpu_torch/ops/csrc/fa_bwd_sm90.cuh",
               "dkv": "paddle_tpu_torch/ops/csrc/fa_bwd_sm90.cuh"}
     for key, name, replaces, count in (
@@ -2791,11 +2823,19 @@ def kernel_rows(res):
             ("dkv", "flash_attention_bwd_dkv_masked",
              "paddle_tpu/ops/pallas/_fa_kernel.py:862", "dkv_launches")):
         if "masked" in res:
-            rows.append(dict(name=name, route="cuda",
-                             source=src_of.get(key, fa_src),
+            rows.append(dict(name=name, route="cuda", source=src_of[key],
                              replaces=replaces,
                              launches=mistral.get(count),
                              **_row_numbers(res["masked"][key])))
+    if "masked" in res:
+        # K6 on the packed documents folded into the window: launches from
+        # the packed run
+        rows.append(dict(name="flash_attention_fwd_stream_packed",
+                         route="cuda", source=src_of["stream"],
+                         replaces="paddle_tpu/ops/pallas/_fa_kernel.py:257",
+                         launches=res.get("packed", {}).get(
+                             "launches", {}).get("stream_fwd_launches"),
+                         **_row_numbers(res["masked"]["stream_packed"])))
     gpt = res.get("gpt", {}).get("launches", {})
     unpadded = res.get("dropseg", {}).get("checks", {}).get("unpadded", {})
     for key, name, replaces, count, runs in (
@@ -2819,8 +2859,7 @@ def kernel_rows(res):
              "stream_fwd_launches", unpadded)):
         if "dropseg" in res:
             rows.append(dict(name=name, route="cuda",
-                             source=src_of.get(key.rsplit("_", 1)[-1],
-                                               fa_src),
+                             source=src_of[key.rsplit("_", 1)[-1]],
                              replaces=replaces, launches=runs.get(count),
                              **_row_numbers(res["dropseg"][key])))
     if "adamw" in res:

@@ -67,9 +67,6 @@ constexpr int kBwdRes = 128, kBwdTile = 64, kBwdStages = 2;
 // K2's consumers hold 128 accumulator registers, K3's 192: K2 hands its
 // producer more of the register file (128 x 40 + 256 x 232 <= 65536)
 constexpr int kDqProducerRegs = 40, kDqConsumerRegs = 232;
-// warpgroup w's kTileDead / kTileInterior sit at bits 2w and 2w + 1 of a
-// stage's flags; the producer's last stage carries kTileEnd alone
-constexpr int kTileEnd = 16;
 
 template <int D>
 struct BwdShape {
@@ -97,56 +94,6 @@ struct BwdStage {
   float delta[kBwdTile];  // K3: their delta, 0 past Sq
 };
 
-// The flags of a tile's two parts, one per consumer warpgroup: query rows
-// [a0[w], a1[w]) against the 64 keys [c0[w], c0[w] + 64), as one warp
-// computes them (lane l folds in keys c0[w] + l and c0[w] + 32 + l; key
-// c's band i at f[i * stride + c - f0], both parts' loads in one pass),
-// part w's at bits 2w and 2w + 1. A part is dead when no row is in range,
-// every key is past Sk or after its last row's causal diagonal, or (in a
-// tested arm) every key is dead for all its rows; interior as tile_flags
-// and key_flags decide it.
-template <int kArm>
-__device__ __forceinline__ int tile_parts(const Mask& mk, int b,
-                                          const int* f, int f0, int stride,
-                                          const int (&a0)[2],
-                                          const int (&a1)[2],
-                                          const int (&c0)[2],
-                                          const QSpan (&qsp)[2], int Sq,
-                                          int Sk) {
-  bool live[2], cover[2], clear[2];
-#pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    live[w] = a1[w] > a0[w] && c0[w] < Sk &&
-              !(mk.causal && c0[w] > a1[w] - 1 + mk.offset);
-    const TileFlags tf =
-        tile_flags(mk, a0[w], a1[w], kBwdTile, c0[w], kBwdTile, Sk);
-    cover[w] = true;
-    clear[w] = tf.clear;
-    if (tile_tested(kArm)) {  // (a part that is not live is dead anyway)
-#pragma unroll
-      for (int i = 0; i < kBwdTile / 32; ++i) {
-        TileFlags fl = tf;
-        const int c = c0[w] + 32 * i + threadIdx.x % 32;
-        key_flags(fl, mk, f == nullptr ? nullptr : f + c - f0, stride, b, c,
-                  a0[w], a1[w], Sq, Sk, qsp[w]);
-        cover[w] = cover[w] && fl.cover;
-        clear[w] = clear[w] && fl.clear;
-      }
-    }
-  }
-  int out = 0;
-#pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    bool dead = !live[w], interior = clear[w];
-    if (tile_tested(kArm)) {
-      dead = __all_sync(0xffffffffu, cover[w]) || dead;
-      interior = __all_sync(0xffffffffu, clear[w]);
-    }
-    out |= (dead ? kTileDead : interior ? kTileInterior : 0) << (2 * w);
-  }
-  return out;
-}
-
 // p = exp(s scale - lse) of one score s, in the log2 domain (lse2 = lse
 // log2(e)): 0 where mask_score masks the pair; no masking on an interior
 // tile. `bands` is the head's row of the bands in device memory (kArmMask
@@ -167,14 +114,6 @@ __device__ __forceinline__ float bwd_prob(const Params& p, const int* bands,
                                    p.Sq, p.Sk);
   // a row with no live key has lse -inf: its p is 0, never -inf - -inf
   return x == -INFINITY ? 0.f : exp2f(x - lse2);
-}
-
-// The head's row of the bands in device memory, or null.
-template <int kArm>
-__device__ __forceinline__ const int* head_bands(const Mask& mk, int b,
-                                                 int h) {
-  return (kArm & kArmMask) && mk.n_fm > 0 ? mk.fm + b * mk.f_b + h * mk.f_h
-                                          : nullptr;
 }
 
 // d (64 x 64) = A (64 x D) B^T (D x 64): the first products, both operands
@@ -253,7 +192,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int kt = 0; kt < n_kt; ++kt) {
       const int k0 = kt * BK;
       const int c0[2] = {k0, k0};
-      const int fl = tile_parts<kArm>(p.mk, b, bands, 0,
+      const int fl = tile_parts<kArm, kBwdTile, false>(p.mk, b, bands, 0,
                                       static_cast<int>(p.mk.f_band), a0, a1,
                                       c0, qsp, Sq, Sk);
       if ((fl & kTileDead) && (fl & kTileDead << 2)) continue;
@@ -441,7 +380,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const int a0[2] = {q0, q0}, a1[2] = {q1, q1};
         const QSpan sp = q_span<kArm>(p.mk, b, q0, q1, Sq);
         const QSpan qsp[2] = {sp, sp};
-        const int fl = tile_parts<kArm>(
+        const int fl = tile_parts<kArm, kBwdTile, false>(
             p.mk, b, (kArm & kArmMask) && p.mk.n_fm > 0 ? cache : nullptr,
             k0, NK, a0, a1, c0, qsp, Sq, Sk);
         if ((fl & kTileDead) && (fl & kTileDead << 2)) continue;

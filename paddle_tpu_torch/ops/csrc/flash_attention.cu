@@ -78,17 +78,17 @@
 // GQA group, and takes each query head's own band and mask row). Two forms
 // of each kernel, chosen by dtype and head_dim:
 //   - bf16 at head_dim 64 or 128 (the training path): the products run
-//     on the tensor cores (bf16 in, float32 accumulate). K1 is a
-//     warp-specialised kernel (fa_fwd_sm90.cuh): a producer warp keeps TMA
-//     loads of 128-key K/V tiles in flight into a two-stage shared ring
-//     (mbarriers), two consumer warpgroups of 64 rows run wgmma on them.
-//     K2 and K3 (fa_bwd_sm90.cuh) are its siblings: 128 resident rows
-//     (K2 query rows with Q and dO, K3 keys with K and V), 64-row tiles of
-//     the other side streamed through the same kind of ring, both first
-//     products and the accumulating ones on wgmma, the second operand of
-//     the latter read MN-major through the transpose bit. K6 runs
-//     mma.sync, four warps of 16 rows each, its tiles staged
-//     synchronously (the ring and wgmma are its next lever);
+//     on the tensor cores (bf16 in, float32 accumulate). K1 and K6 are one
+//     warp-specialised forward under two kernel names (fa_fwd_sm90.cuh): a
+//     producer warp keeps TMA loads of 128-key K/V tiles in flight into a
+//     two-stage shared ring (mbarriers), handing on only the tiles that
+//     are live for a consumer warpgroup, and two consumer warpgroups of 64
+//     rows run wgmma on them. K2 and K3 (fa_bwd_sm90.cuh) are their
+//     siblings: 128 resident rows (K2 query rows with Q and dO, K3 keys
+//     with K and V), 64-row tiles of the other side streamed through the
+//     same kind of ring, both first products and the accumulating ones on
+//     wgmma, the second operand of the latter read MN-major through the
+//     transpose bit;
 //   - float32 (float32 math, no TF32) and head_dim 256: the products run
 //     on the CUDA cores in float32, 256 threads each owning a 4 x 4 block
 //     of scores and a 4 x D/16 block of the accumulator.
@@ -215,11 +215,12 @@ __device__ __forceinline__ float keep_of(const Params& p, int bh, int r,
 // head h of batch b, or -inf where that pair is masked. cl indexes the
 // key's bands in `bands`, band i at i * stride (kArmMask only): c - k0 in
 // the [n_fm][BK] bands of the key's tile staged in shared memory (stride
-// BK), or c in the head's row of the bands in device memory (stride
-// f_band). Rows past Sq and keys past Sk are masked; then causal with the
-// diagonal at Sk - Sq; then each band [start, end) of column c; then the
-// additive mask is added; then the segment ids must be equal and
-// non-negative.
+// BK), c in the head's row of the bands in device memory (stride f_band),
+// or 0 in the key's own bands loaded into registers by the caller (stride
+// 1: K6 loads a key's bands once for both of a thread's rows). Rows past
+// Sq and keys past Sk are masked; then causal with the diagonal at Sk -
+// Sq; then each band [start, end) of column c; then the additive mask is
+// added; then the segment ids must be equal and non-negative.
 template <int kArm, int BK>
 __device__ __forceinline__ float mask_score(const Mask& mk, const int* bands,
                                             float s, int b, int h, int r,
@@ -228,8 +229,10 @@ __device__ __forceinline__ float mask_score(const Mask& mk, const int* bands,
   if (r >= Sq || c >= Sk || (mk.causal && c > r + mk.offset))
     return -INFINITY;
   if (kArm & kArmMask) {
-    for (int i = 0; i < mk.n_fm; i += 2)
-      if (r >= bands[i * stride + cl] && r < bands[(i + 1) * stride + cl])
+#pragma unroll
+    for (int i = 0; i < 4; i += 2)
+      if (i < mk.n_fm && r >= bands[i * stride + cl] &&
+          r < bands[(i + 1) * stride + cl])
         return -INFINITY;
     if (mk.add != nullptr)
       s += mk.add[b * mk.a_b + h * mk.a_h + r * mk.a_r + c * mk.a_c];
@@ -273,6 +276,12 @@ struct TileFlags {
   bool cover, clear;
 };
 
+// The flags a wgmma kernel's producer hands on beside a tile (tile_parts):
+// consumer warpgroup w's part is dead (skipped) at bit 2w, interior (no
+// row or key of it masked) at bit 2w + 1; a last stage marked kTileEnd
+// alone ends the consumers' loop.
+constexpr int kTileDead = 1, kTileInterior = 2, kTileEnd = 16;
+
 __device__ __forceinline__ TileFlags tile_flags(const Mask& mk, int q0, int q1,
                                                 int BQ, int k0, int BK,
                                                 int Sk) {
@@ -282,8 +291,10 @@ __device__ __forceinline__ TileFlags tile_flags(const Mask& mk, int q0, int q1,
 }
 
 // The least and greatest segment id of the q rows [q0, q1) of batch b
-// (kArmSeg only), each warp reducing them on its own, so no barrier: K1,
-// K6 and K2 take it once per block, K3 once per q tile.
+// (kArmSeg only), each warp reducing them on its own, so no barrier: the
+// wgmma K1, K6 and K2 take it once per block for each consumer
+// warpgroup's rows, K3 once per q tile, the CUDA-core kernels once per
+// block or q tile.
 struct QSpan {
   int lo, hi;
 };
@@ -302,48 +313,160 @@ __device__ __forceinline__ QSpan q_span(const Mask& mk, int b, int q0, int q1,
                __reduce_max_sync(0xffffffffu, hi)};
 }
 
-// Key c = k0 + cl's part: kb points at its first band's start in the
-// staged bands, the band values `stride` apart. An end of INT_MAX (the C=1
-// form) is compared, never added to. A key past Sk is covered and not
-// clear. The segment test decides from the rows' span qsp alone when the
-// key's id lies outside it or every row shares one id (a padded batch, a
-// tile inside one document); only a key inside a mixed span reads the
-// rows' ids, up to the first that matches.
-__device__ __forceinline__ void key_flags(TileFlags& fl, const Mask& mk,
-                                          const int* kb, int stride, int b,
-                                          int c, int q0, int q1, int Sq,
-                                          int Sk, QSpan qsp) {
-  // every load first, with no branch before them, so that their latencies
-  // overlap (a producer warp tests a tile's keys while the consumers wait
-  // for it)
-  const bool in = c < Sk;
+// What key c's test reads: its bands (kb points at its first band's start,
+// the band values `stride` apart) and its segment id, every load issued
+// with no branch before it, so that their latencies overlap (a producer
+// warp tests a tile's keys while the consumers wait for it).
+struct KeyVals {
+  bool in;  // c < Sk
   int bd[4];
+  int ks;
+};
+
+__device__ __forceinline__ KeyVals key_load(const Mask& mk, const int* kb,
+                                            int stride, int b, int c,
+                                            int Sk) {
+  KeyVals kv;
+  kv.in = c < Sk;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) bd[i] = in && i < mk.n_fm ? kb[i * stride] : 0;
-  const int ks = in && mk.qseg != nullptr
-                     ? mk.kseg[static_cast<long long>(b) * Sk + c]
-                     : 0;
-  if (!in) {
+  for (int i = 0; i < 4; ++i)
+    kv.bd[i] = kv.in && i < mk.n_fm ? kb[i * stride] : 0;
+  kv.ks = kv.in && mk.qseg != nullptr
+              ? mk.kseg[static_cast<long long>(b) * Sk + c]
+              : 0;
+  return kv;
+}
+
+// A key's part of the tests for the q rows [q0, q1), from its loaded
+// values. An end of INT_MAX (the C=1 form) is compared, never added to. A
+// key past Sk is covered and not clear. The segment test decides from the
+// rows' span qsp alone when the key's id lies outside it or every row
+// shares one id (a padded batch, a tile inside one document); only a key
+// inside a mixed span reads the rows' ids, eight independent loads a
+// round, up to the round that holds the first match.
+__device__ __forceinline__ void key_test(TileFlags& fl, const KeyVals& kv,
+                                         const Mask& mk, int b, int q0,
+                                         int q1, int Sq, QSpan qsp) {
+  if (!kv.in) {
     fl.clear = false;
     return;
   }
-  fl.cover = mk.n_fm > 0 && bd[0] <= q0 && bd[1] >= q1;
+  fl.cover = mk.n_fm > 0 && kv.bd[0] <= q0 && kv.bd[1] >= q1;
 #pragma unroll
   for (int i = 0; i < 4; i += 2)
     if (i < mk.n_fm)
-      fl.clear = fl.clear && (bd[i] >= q1 || bd[i + 1] <= q0 ||
-                              bd[i] >= bd[i + 1]);
+      fl.clear = fl.clear && (kv.bd[i] >= q1 || kv.bd[i + 1] <= q0 ||
+                              kv.bd[i] >= kv.bd[i + 1]);
   if (mk.qseg != nullptr) {
+    const int ks = kv.ks;
     const bool inside = ks >= qsp.lo && ks <= qsp.hi;
     const bool all = inside && qsp.lo == qsp.hi && ks >= 0;
     bool any = inside && qsp.lo == qsp.hi;
     if (inside && !any) {
       const int* qs = mk.qseg + static_cast<long long>(b) * Sq;
-      for (int r = q0; r < q1 && !any; ++r) any = qs[r] == ks;
+      for (int r = q0; r < q1 && !any; r += 8) {
+        int id[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) id[j] = r + j < q1 ? qs[r + j] : ~ks;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) any = any || id[j] == ks;
+      }
     }
     fl.cover = fl.cover || ks < 0 || !any;
     fl.clear = fl.clear && all;
   }
+}
+
+// Key c = k0 + cl's part: kb points at its first band's start in the
+// staged bands (or the head's row of them), the band values `stride`
+// apart.
+__device__ __forceinline__ void key_flags(TileFlags& fl, const Mask& mk,
+                                          const int* kb, int stride, int b,
+                                          int c, int q0, int q1, int Sq,
+                                          int Sk, QSpan qsp) {
+  key_test(fl, key_load(mk, kb, stride, b, c, Sk), mk, b, q0, q1, Sq, qsp);
+}
+
+// The head's row of the bands in device memory, or null.
+template <int kArm>
+__device__ __forceinline__ const int* head_bands(const Mask& mk, int b,
+                                                 int h) {
+  return (kArm & kArmMask) && mk.n_fm > 0 ? mk.fm + b * mk.f_b + h * mk.f_h
+                                          : nullptr;
+}
+
+// The flags of a tile's two parts, one per consumer warpgroup of the
+// wgmma kernels (K1, K6, K2, K3): query rows [a0[w], a1[w]) (at most 64)
+// against the NK keys [c0[w], c0[w] + NK), as one warp computes them (lane
+// l folds in keys c0[w] + 32 i + l; key c's band i at f[i * stride + c -
+// f0]), part w's at bits 2w and 2w + 1 (kTileDead, kTileInterior). A part
+// is dead when no row is in range, every key is past Sk or after its last
+// row's causal diagonal, or (in a tested arm) every key is dead for all
+// its rows; interior as tile_flags and key_flags decide it. kShared: both
+// parts test the same keys (c0[0] == c0[1]), whose values are then loaded
+// once, every load of the tile before any test.
+template <int kArm, int NK, bool kShared>
+__device__ __forceinline__ int tile_parts(const Mask& mk, int b,
+                                          const int* f, int f0, int stride,
+                                          const int (&a0)[2],
+                                          const int (&a1)[2],
+                                          const int (&c0)[2],
+                                          const QSpan (&qsp)[2], int Sq,
+                                          int Sk) {
+  bool live[2], cover[2], clear[2];
+  TileFlags tf[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    live[w] = a1[w] > a0[w] && c0[w] < Sk &&
+              !(mk.causal && c0[w] > a1[w] - 1 + mk.offset);
+    tf[w] = tile_flags(mk, a0[w], a1[w], 64, c0[w], NK, Sk);
+    cover[w] = true;
+    clear[w] = tf[w].clear;
+  }
+  if (tile_tested(kArm)) {  // (a part that is not live is dead anyway)
+    const int lane = threadIdx.x % 32;
+    if constexpr (kShared) {
+      KeyVals kv[NK / 32];
+#pragma unroll
+      for (int i = 0; i < NK / 32; ++i) {
+        const int c = c0[0] + 32 * i + lane;
+        kv[i] = key_load(mk, f == nullptr ? nullptr : f + c - f0, stride, b,
+                         c, Sk);
+      }
+#pragma unroll
+      for (int i = 0; i < NK / 32; ++i)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          TileFlags fl = tf[w];
+          key_test(fl, kv[i], mk, b, a0[w], a1[w], Sq, qsp[w]);
+          cover[w] = cover[w] && fl.cover;
+          clear[w] = clear[w] && fl.clear;
+        }
+    } else {
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int i = 0; i < NK / 32; ++i) {
+          TileFlags fl = tf[w];
+          const int c = c0[w] + 32 * i + lane;
+          key_flags(fl, mk, f == nullptr ? nullptr : f + c - f0, stride, b,
+                    c, a0[w], a1[w], Sq, Sk, qsp[w]);
+          cover[w] = cover[w] && fl.cover;
+          clear[w] = clear[w] && fl.clear;
+        }
+    }
+  }
+  int out = 0;
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    bool dead = !live[w], interior = clear[w];
+    if (tile_tested(kArm)) {
+      dead = __all_sync(0xffffffffu, cover[w]) || dead;
+      interior = __all_sync(0xffffffffu, clear[w]);
+    }
+    out |= (dead ? kTileDead : interior ? kTileInterior : 0) << (2 * w);
+  }
+  return out;
 }
 
 // The forward's and K2's per-tile staging in a tested arm: thread cl < BK
@@ -842,103 +965,22 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkv_kernel(const Params p) {
 }
 
 // -- the tensor-core path: bf16, head_dim 64 or 128 ---------------------------
-// K6 with every product on mma.sync.m16n8k16 (bf16 in, float32
-// accumulate). 128 threads, four warps; each warp owns 16 query rows of the
-// block's tile and keeps its accumulators in the mma fragment layout:
-// thread (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t and
-// 2t + 1 of each 8-wide tile (the wgmma accumulators of K1-K3 hold the same
-// elements per 16-row warp slice). Probabilities are rounded to bf16 for
-// p V, as K1-K3 round p and ds for their second products; scores, softmax
-// statistics and every sum stay float32. Tiles are staged in shared memory
-// as bf16, rows padded by 8 elements so the fragment loads hit 32 distinct
-// banks; V, which the mma reads along its other axis, is staged
-// transposed.
+// K1, K6, K2 and K3 on TMA + wgmma (fa_fwd_sm90.cuh: fa_fwd_wgmma_kernel,
+// fa_fwd_stream_wgmma_kernel; fa_bwd_sm90.cuh: fa_bwd_dq_wgmma_kernel,
+// fa_bwd_dkv_wgmma_kernel). A thread (g = lane / 4, t = lane % 4) of a
+// 16-row warp slice holds rows g and g + 8, columns 2t and 2t + 1 of each
+// 8-wide column group of a wgmma accumulator. Probabilities and ds are
+// rounded to bf16 for the second products; scores, softmax statistics and
+// every sum stay float32.
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// c += a (16 x 16, row) * b (16 x 8, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows [0, 16) and columns [c0, c0 + 16) of a
-// row-major bf16 tile with row pitch ld (in elements).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int ld, int c0) {
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const bf16* p = tile + g * ld + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// The A fragment (rows of the warp, k columns [16 kk, 16 kk + 16)) of a
-// score-like accumulator x[n][4] held in the C layout.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&x0)[4],
-                                       const float (&x1)[4]) {
-  a[0] = pack_bf16(x0[0], x0[1]);
-  a[1] = pack_bf16(x0[2], x0[3]);
-  a[2] = pack_bf16(x1[0], x1[1]);
-  a[3] = pack_bf16(x1[2], x1[3]);
-}
-
-// acc[n] += A (16 x 16 k) * B, B's column n*8 + g read from the
-// k-contiguous rows of a shared tile: b[k][n] = rows[(n*8 + g) * ld + k0 + k]
-template <int NT>
-__device__ __forceinline__ void mma_rows(float (&acc)[NT][4],
-                                         const uint32_t (&a)[4],
-                                         const bf16* rows, int ld, int k0) {
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const bf16* p = rows + (n * 8 + g) * ld + k0 + 2 * t;
-    mma16816(acc[n], a, ld32(p), ld32(p + 8));
-  }
-}
-
-constexpr int kMmaThreads = 128;
-
-// Rows [s0, s0 + ROWS) of head h of X [B, S, heads, D] into dst, row-major
-// with pitch D + 8 (kTransposed: dst[d * (ROWS + 8) + r]); rows past S are
-// zeros. 16-byte global loads.
-template <int D, int ROWS, bool kTransposed>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ X,
-                                      int b, int s0, int h, int S,
-                                      int heads) {
-  constexpr int V = D / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < ROWS * V; idx += kMmaThreads) {
-    const int r = kTransposed ? idx % ROWS : idx / V;
-    const int c = 8 * (kTransposed ? idx / ROWS : idx % V);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s0 + r < S)
-      val = *reinterpret_cast<const uint4*>(
-          X + row_off(b, s0 + r, h, S, heads, D) + c);
-    if (kTransposed) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[(c + i) * (ROWS + 8) + r] = e[i];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-    }
-  }
-}
-
+// Reductions over the four threads that share a row of an accumulator.
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -948,145 +990,8 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-constexpr int kMmaBQ = 64, kMmaBK = 64;
-
-template <int D, int kArm>
-__device__ __forceinline__ void fwd_mma(const Params& p) {
-  constexpr int BQ = kMmaBQ, BK = kMmaBK, LD = D + 8, LDT = BK + 8;
-  constexpr int KS = D / 16, NK = BK / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* Ks = Qs + BQ * LD;                        // [BK][LD]
-  bf16* Vt = Ks + BK * LD;                        // [D][LDT]  V transposed
-  int* bands = reinterpret_cast<int*>(Vt + D * LDT);  // [n_fm][BK]
-
-  const bf16* __restrict__ q = static_cast<const bf16*>(p.q);
-  const bf16* __restrict__ k = static_cast<const bf16*>(p.k);
-  const bf16* __restrict__ v = static_cast<const bf16*>(p.v);
-  bf16* __restrict__ out = static_cast<bf16*>(p.out0);
-  const int Sq = p.Sq, Sk = p.Sk, H = p.H, HKV = p.HKV;
-  const float scale = p.scale;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int q1 = min(q0 + BQ, Sq);
-  const int hk = h / (H / HKV);
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
-            t = threadIdx.x % 4;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  stage<D, BQ, false>(Qs, q, b, q0, h, Sq, H);
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    load_a(qa[kk], Qs + warp * 16 * LD, LD, kk * 16);
-
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  const QSpan qsp = q_span<kArm>(p.mk, b, q0, q1, Sq);
-  const int n_kt = k_tiles(p.mk, q1, BK, Sk);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    TileFlags fl{false, false};
-    if (tile_tested(kArm)) {
-      fl = stage_key_flags<BK>(bands, p.mk, b, h, k0, Sq, Sk, q0, q1, BQ,
-                               qsp);
-      if (__syncthreads_and(fl.cover)) continue;  // a dead tile
-    }
-    stage<D, BK, false>(Ks, k, b, k0, hk, Sk, HKV);
-    stage<D, BK, true>(Vt, v, b, k0, hk, Sk, HKV);
-    const bool interior = sync_interior<kArm>(fl.clear);
-
-    float s[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) mma_rows<NK>(s, qa[kk], Ks, LD, kk * 16);
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = j * 8 + 2 * t + (e & 1);
-        const float sc = s[j][e] * scale;
-        const float x =
-            interior ? sc
-                     : mask_score<kArm, BK>(p.mk, bands, sc, b, h,
-                                            e < 2 ? r0 : r1, k0 + cl, cl, Sq,
-                                            Sk);
-        s[j][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float ms0 = mn0 == -INFINITY ? 0.f : mn0;
-    const float ms1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float corr0 = expf(m0 - ms0), corr1 = expf(m1 - ms1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float pr = x == -INFINITY ? 0.f : expf(x - (e < 2 ? ms0 : ms1));
-        // l sums the undropped p; p V takes the kept links
-        s[j][e] = (kArm & kArmDrop)
-                      ? pr * keep_of(p, b * H + h, e < 2 ? r0 : r1,
-                                     k0 + j * 8 + 2 * t + (e & 1))
-                      : pr;
-        if (e < 2) ps0 += pr; else ps1 += pr;
-      }
-    l0 = l0 * corr0 + ps0;
-    l1 = l1 * corr1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= corr0; o[n][1] *= corr0;
-      o[n][2] *= corr1; o[n][3] *= corr1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      mma_rows<ND>(o, pa, Vt, LDT, kk * 16);
-    }
-  }
-
-  const float lt0 = fmaxf(quad_sum(l0), 1e-30f);
-  const float lt1 = fmaxf(quad_sum(l1), 1e-30f);
-  const long long st = (static_cast<long long>(b) * H + h) * Sq;
-  if (r0 < Sq) {
-    bf16* row = out + row_off(b, r0, h, Sq, H, D) + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16(o[n][0] / lt0, o[n][1] / lt0);
-    if (p.lse_out != nullptr && t == 0) p.lse_out[st + r0] = m0 + logf(lt0);
-  }
-  if (r1 < Sq) {
-    bf16* row = out + row_off(b, r1, h, Sq, H, D) + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16(o[n][2] / lt1, o[n][3] / lt1);
-    if (p.lse_out != nullptr && t == 0) p.lse_out[st + r1] = m1 + logf(lt1);
-  }
-}
-
-// K1's bf16 forward at head_dim 64 and 128: fa_fwd_wgmma_kernel; K2's
-// and K3's bf16 backward at head_dim 64 and 128: fa_bwd_dq_wgmma_kernel,
-// fa_bwd_dkv_wgmma_kernel.
 #include "fa_fwd_sm90.cuh"
 #include "fa_bwd_sm90.cuh"
-
-template <int D, int kArm>
-__global__ void __launch_bounds__(kMmaThreads)
-    fa_fwd_stream_mma_kernel(const Params p) {
-  fwd_mma<D, kArm>(p);
-}
 
 // -- launches ----------------------------------------------------------------
 
@@ -1112,11 +1017,6 @@ constexpr int dkv_smem(int arm) {
   return 4 * (2 * Tile<D>::BK * (D + 1) + 2 * D * (Tile<D>::BQ + 1) +
               2 * Tile<D>::BK * (Tile<D>::BQ + 1) + 2 * Tile<D>::BQ) +
          band_smem(Tile<D>::BK, arm);
-}
-template <int D>
-constexpr int fwd_mma_smem(int arm) {
-  return 2 * ((kMmaBQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8)) +
-         band_smem(kMmaBK, arm);
 }
 // K1 and K6 are the two forward kernels; K2 and K3 take the arm of their
 // call.
@@ -1164,18 +1064,15 @@ int launch_core(const Params& p, int which, cudaStream_t stream) {
   return kInvalid;
 }
 
-// The tensor-core kernels in arm kArm: bf16 at head_dim 64 and 128 (K1,
-// K2 and K3 on TMA + wgmma, K6 on mma.sync).
+// The tensor-core kernels in arm kArm: bf16 at head_dim 64 and 128, K1,
+// K6, K2 and K3 on TMA + wgmma.
 template <int D, int kArm>
 int launch_mma(const Params& p, int which, cudaStream_t stream) {
-  const dim3 qgrid(tiles(p.Sq, kMmaBQ), p.H, p.B);
   if constexpr (!(kArm & kArmMask)) {
     if (which == kFwd) return launch_wgmma<D, kArm>(p, stream);
   }
   if constexpr ((kArm & kArmMask) && !(kArm & kArmDrop)) {
-    if (which == kStream)
-      return launch(fa_fwd_stream_mma_kernel<D, kArm>, qgrid, kMmaThreads,
-                    fwd_mma_smem<D>(kArm), stream, p);
+    if (which == kStream) return launch_stream_wgmma<D, kArm>(p, stream);
   }
   if (which == kDq || which == kDkv)
     return launch_bwd_wgmma<D, kArm>(p, which == kDq, stream);

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the warp-specialised flash-attention
-// kernels: K1's forward (fa_fwd_sm90.cuh) and K2/K3's backward
+// kernels: K1's and K6's forward (fa_fwd_sm90.cuh) and K2/K3's backward
 // (fa_bwd_sm90.cuh). Included by each of them, inside flash_attention.cu's
 // anonymous namespace; kept in one place so that neither copies the other.
 //
@@ -16,19 +16,15 @@
 //   fences, commit and wait, and the m64nNk16 products with A from shared
 //   memory (SS, both operands K-major) or from registers (RS, B MN-major
 //   through the transpose bit);
-// - the stage flags a producer writes beside a tile: dead (nothing
-//   loaded, skipped) and interior (no row or key of it is masked).
+// - the producer warpgroup's own barrier (its four warps test tiles
+//   together in K1's and K6's tested arms).
 #pragma once
 
-// two consumer warpgroups and a producer warpgroup (one warp of it works):
-// 128 x 24 + 256 x 240 <= 65536
+// two consumer warpgroups and a producer warpgroup (one warp of it issues
+// the loads): 128 x 24 + 256 x 240 <= 65536
 constexpr int kWgConsumers = 256, kWgThreads = kWgConsumers + 128;
 constexpr int kWgProducerRegs = 24, kWgConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
-
-// The stage flags the producer writes: the tile is dead (skipped, nothing
-// loaded) / interior (no row or key of it is masked).
-constexpr int kTileDead = 1, kTileInterior = 2;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -64,6 +60,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// The named barrier 1 over the producer warpgroup's 128 threads (the
+// consumers never touch it; __syncthreads is barrier 0).
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
 }
 
 // x as the compiler can see it is the same in every lane of the warp (lane

@@ -144,12 +144,13 @@ def test_bf16_plain_forward_rounds_the_probabilities_like_the_oracle():
                                atol=1e-3)
 
 
-def test_k1_bf16_routes_to_the_wgmma_forward_and_k6_keeps_fwd_mma():
+def test_k1_and_k6_bf16_route_to_the_wgmma_forward():
     """On the source (no compiler here): the tensor-core launcher sends
-    K1 (kFwd) to the warp-specialised wgmma forward of fa_fwd_sm90.cuh in
-    every arm, K6 (kStream) still to fwd_mma; bf16 at head_dim 64 and 128
-    take the tensor-core launcher, float32 and head_dim 256 the CUDA-core
-    one."""
+    K1 (kFwd) and K6 (kStream, in both kArmMask arms: with and without
+    segment ids) to the warp-specialised TMA + wgmma forward of
+    fa_fwd_sm90.cuh, one body under two kernel names; bf16 at head_dim 64
+    and 128 take the tensor-core launcher, float32 and head_dim 256 the
+    CUDA-core one; the mma.sync forward and its helpers are gone."""
     import re
     csrc = TK.KERNEL_LIBRARY.source.parent
     src = TK.KERNEL_LIBRARY.source.read_text()
@@ -158,31 +159,54 @@ def test_k1_bf16_routes_to_the_wgmma_forward_and_k6_keeps_fwd_mma():
     assert (csrc / "fa_fwd_sm90.cuh") in TK.KERNEL_LIBRARY.sources()
     mma = src[src.index("int launch_mma("):src.index("int launch_arm(")]
     assert re.search(r"which == kFwd\)\s*return launch_wgmma<D, kArm>", mma)
-    assert "fa_fwd_stream_mma_kernel<D, kArm>" in mma
-    assert "fa_fwd_mma_kernel" not in src
-    stream = src[src.index("fa_fwd_stream_mma_kernel(const Params p)"):]
-    assert stream[:200].count("fwd_mma<D, kArm>(p)") == 1
+    assert re.search(r"if constexpr \(\(kArm & kArmMask\) && !\(kArm & "
+                     r"kArmDrop\)\) \{\s*if \(which == kStream\)\s*return "
+                     r"launch_stream_wgmma<D, kArm>\(p, stream\)", mma)
+    arm = src[src.index("int launch_arm("):src.index("int dispatch(")]
+    for a in ("kArmMask", "kArmMask | kArmSeg"):
+        assert f"FA_ARM({a})" in arm, a
+    assert "launch_mma<D, A>(p, which, stream)" in arm
     for d in (64, 128):
         assert f"launch_arm<bf16, {d}, true>" in src
     assert "launch_arm<bf16, 256, false>" in src
-    kernel = hdr[hdr.index("fa_fwd_wgmma_kernel("):]
+    # each launcher reaches its own kernel name; both kernels run one body
+    for launcher, kernel in (("int launch_wgmma(", "fa_fwd_wgmma_kernel"),
+                             ("int launch_stream_wgmma(",
+                              "fa_fwd_stream_wgmma_kernel")):
+        body = hdr[hdr.index(launcher):]
+        assert f"{kernel}<D, kArm>" in body[:body.index("\n}\n")]
+        body = hdr[hdr.index(f"{kernel}(const Params p"):]
+        assert body[:body.index("\n}\n")].count(
+            "fwd_wgmma<D, kArm>(p, &tq, &tk, &tv)") == 1
+    body = hdr[hdr.index("void fwd_wgmma("):]
+    body = body[:body.index("\n}\n")]
     for needle in ("wgmma_ss_n128", "wgmma_pv<D>", "tma_rows<D>(",
-                   "mbar_wait(", "keep_of(", "mask_score<kArm"):
-        assert needle in kernel, needle
-    # the asm lives in the Hopper building blocks K1 shares with K2/K3
+                   "mbar_wait(", "keep_of(", "mask_score<kArm",
+                   "tile_parts<kArm", "kTileEnd", "producer_sync()",
+                   "head_bands<kArm>", "warp_uniform("):
+        assert needle in body, needle
+    # the asm lives in the Hopper building blocks K1/K6 share with K2/K3
     sm90 = (csrc / "sm90.cuh").read_text()
     assert '#include "sm90.cuh"' in hdr
     assert "wgmma.mma_async" in sm90 and "cp.async.bulk.tensor" in sm90
+    texts = [p.read_text() for p in TK.KERNEL_LIBRARY.sources()]
+    for gone in ("fwd_mma", "fa_fwd_stream_mma_kernel", "fa_fwd_mma_kernel",
+                 "fwd_mma_smem", "kMmaBQ", "kMmaBK", "kMmaThreads",
+                 "mma16816", r"load_a\(", "mma_rows", r"c_to_a\(",
+                 r"ld32\(", r"stage\(", r"mma\.sync\.aligned"):
+        assert not any(re.search(rf"\b{gone}\b" if gone[-1].isalnum()
+                                 else rf"\b{gone}", t) for t in texts), gone
 
 
-
-def test_k2_k3_bf16_route_to_the_wgmma_backward_and_k6_keeps_fwd_mma():
+def test_k2_k3_bf16_route_to_the_wgmma_backward_and_no_mma_sync_remains():
     """On the source (no compiler here): the tensor-core launcher sends K2
     (kDq) and K3 (kDkv) to the TMA + wgmma kernels of fa_bwd_sm90.cuh in
     every arm; the mma.sync backward kernels and their shared-memory sizes
     are gone; the new header and the Hopper building blocks it shares with
-    K1 are among the library's sources, so an edit to either rebuilds it;
-    K6 (kStream) still reaches fwd_mma."""
+    K1 and K6 are among the library's sources, so an edit to either
+    rebuilds it; K6 (kStream) reaches its wgmma kernel, not the mma.sync
+    fwd_mma of before; the tile tests K1, K6, K2 and K3 share live in one
+    place."""
     import re
     csrc = TK.KERNEL_LIBRARY.source.parent
     src = TK.KERNEL_LIBRARY.source.read_text()
@@ -196,12 +220,15 @@ def test_k2_k3_bf16_route_to_the_wgmma_backward_and_k6_keeps_fwd_mma():
     assert re.search(r"which == kDq \|\| which == kDkv\)\s*return "
                      r"launch_bwd_wgmma<D, kArm>\(p, which == kDq, stream\)",
                      mma)
-    assert "fa_fwd_stream_mma_kernel<D, kArm>" in mma
-    stream = src[src.index("fa_fwd_stream_mma_kernel(const Params p)"):]
-    assert stream[:200].count("fwd_mma<D, kArm>(p)") == 1
+    assert "launch_stream_wgmma<D, kArm>" in mma
     for gone in ("fa_bwd_dq_mma_kernel", "fa_bwd_dkv_mma_kernel",
-                 "dq_mma_smem", "dkv_mma_smem", "kMmaBQ3"):
+                 "dq_mma_smem", "dkv_mma_smem", "kMmaBQ3",
+                 "fa_fwd_stream_mma_kernel", "fwd_mma", "mma.sync.aligned"):
         assert gone not in src and gone not in hdr, gone
+    fwd = (csrc / "fa_fwd_sm90.cuh").read_text()
+    assert src.count("int tile_parts(") == 1
+    assert "int tile_parts(" not in hdr and "int tile_parts(" not in fwd
+    assert hdr.count("tile_parts<kArm, kBwdTile, false>(") == 2
     launch = hdr[hdr.index("int launch_bwd_wgmma("):]
     for kernel in ("fa_bwd_dq_wgmma_kernel", "fa_bwd_dkv_wgmma_kernel"):
         assert f"{kernel}<D, kArm>" in launch

@@ -389,3 +389,23 @@ def test_fm_oracles_agree_with_the_plain_kernels():
     _close(lse, ref_lse, ATOL, "lse")
     assert all(torch.isfinite(x.grad).all() for x in xs)
     assert (xs[0].grad[:, :6] == 0).all()
+
+
+def test_chip_smoke_band_keep_keeps_what_the_plain_masking_keeps():
+    """``chip_smoke.band_keep``, from which the card run counts the live
+    (row, key) pairs of K6's bound on the packed documents folded into
+    the window (and SDPA's bool mask there), keeps exactly the pairs the
+    plain masking leaves finite: the window alone and documents folded
+    into it, causal, S 512."""
+    import chip_smoke as CS
+    s, window = 512, 128
+    start, end = CS.window_bands(s, window, "cpu")
+    rng = np.random.default_rng(3)
+    ends = CS.doc_ends([CS.doc_lengths(rng, s, 16, 128) for _ in range(2)],
+                       s, "cpu")
+    for fm in ((start, end), (torch.minimum(ends, start), end)):
+        keep = CS.band_keep(fm, s)
+        want = torch.isfinite(TK.masked_scores(
+            torch.zeros(keep.shape[0], 1, s, s), causal=True, fm=fm))
+        assert keep.shape == want.shape and torch.equal(keep, want)
+        assert 0 < int(keep.sum()) < keep.shape[0] * s * (s + 1) // 2
