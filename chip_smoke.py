@@ -22,7 +22,8 @@ Phases, each of which passes or ends the script with a non-zero code:
    params exactly their masters rounded); its time beside the plain
    version's, one PyTorch library call's (a yardstick the port never
    calls) and the card's bound (K5 at LLaMA-2-7B's and Mistral's GQA
-   32:8 decode and prefill shapes, from CUDA-graph replays).
+   32:8 decode and prefill shapes and at the ragged phase's mixed step,
+   both forms in one token-packed call, from CUDA-graph replays).
 3. ``masked``: K6 (the streamed masked forward) and the masked arms of
    K2/K3 the same way, at B 1, S 4096, H 32 over 8 kv heads with the
    window cut to 1024: the window, C=1 documents with the window, a C=2
@@ -80,13 +81,30 @@ Phases, each of which passes or ends the script with a non-zero code:
    losses must agree.
 11. ``serve``: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
    llama2_7b(dtype="bfloat16", use_flash_attention=False))`` at full
-   width and depth, random weights from a seed, answers 8 requests.
-   Every request must finish with its token count; K5 must have
-   launched layers x forwards times and its plain version never, every
-   prefill chunk through the tile form and every decode step through the
-   split form and its combine; the
-   greedy requests' last-prompt-token logits must agree with a dense
-   forward of the same model in plain float32 attention.
+   width and depth, random weights from a seed, the bucketed step, every
+   step class a CUDA graph (captured in a warm-up of 16 requests that
+   ramps every bucket, greedy and sampling), answers 8 requests. Every
+   request must finish with its token count; every forward must be a
+   graph replay; K5 must have launched layers x forwards times (counted
+   per replay) and its plain version never, every prefill chunk through
+   the tile form and every decode step through the split form and its
+   combine. Each greedy request is held against one dense forward of
+   the same model in plain float32 attention over its prompt and its
+   tokens: its first token's logits within cosine 0.999, and, teacher-
+   forced, each of its tokens the dense argmax wherever the dense top-2
+   margin exceeds 0.5. A profile of 3 decode steps gives the step's
+   wall, device busy time and kernels.
+12. ``ragged``: the same over ``LlamaConfig.mistral_7b`` at full width
+   and depth (32 layers, GQA 32:8, FFN 14336, the 4096 window) with the
+   unified ragged step (``ragged=True``, 9 lanes, token capacities 8 and
+   264, one CUDA graph each) over a 2048-page pool, 8 requests of 48 to
+   6300 prompt tokens: at most 2 program classes, one dispatch and one
+   fetch a step, K5's split, combine and tile kernels each layers x
+   forwards times, the same dense checks (three greedy prompts past the
+   window).
+
+Serving phases report TTFT p50 and max, decode tokens/s (steps with no
+prefill chunk), output tokens/s, step time p50 and max and peak memory.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit
 as ``nvidia-smi`` prints them, and ``{"ok": true, "device": ...}``.
@@ -200,24 +218,25 @@ def graph_ms(fn, iters, reps=10):
 # -- ragged paged attention (K5) ---------------------------------------------
 
 def make_case(lanes, *, nh, nkv, dtype, int8=False, window=None,
-              pad_tokens=0, pad_lanes=0, seed=0, dev="cuda", d=HEAD_DIM):
-    """A token-packed batch over a page pool of KV_POOL_PAGES pages.
+              pad_tokens=0, pad_lanes=0, seed=0, dev="cuda", d=HEAD_DIM,
+              max_pages=4096 // PAGE_SIZE, pool_pages=KV_POOL_PAGES):
+    """A token-packed batch over a page pool of ``pool_pages`` pages.
     ``lanes`` = [(context_len, query_len), ...]: each lane's queries are
     its last ``query_len`` positions, its keys sit in randomly ordered
     pages. Padded lanes have context 1 on the scratch page, padding
     tokens follow the real ones, as the engine lays them out; head_dim
-    ``d``."""
+    ``d``; page tables ``max_pages`` wide (by default LLaMA-2's 4096
+    positions)."""
     import torch
     from paddle_tpu_torch.serving.attention import _token_lanes, quantize_q8
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(seed)
-    max_pages = 4096 // PAGE_SIZE  # LLaMA-2's max_position_embeddings
     n_lanes = len(lanes) + pad_lanes
     pt = torch.zeros(n_lanes, max_pages, dtype=torch.int32)
     cl = torch.ones(n_lanes, dtype=torch.int32)
     ql = torch.zeros(n_lanes, dtype=torch.int32)
     qoff = torch.zeros(n_lanes, dtype=torch.int32)
-    perm = torch.randperm(KV_POOL_PAGES - 1, generator=torch.Generator()
+    perm = torch.randperm(pool_pages - 1, generator=torch.Generator()
                           .manual_seed(seed)) + 1
     used = 0
     for i, (c, q) in enumerate(lanes):
@@ -225,10 +244,10 @@ def make_case(lanes, *, nh, nkv, dtype, int8=False, window=None,
         pt[i, :n] = perm[used:used + n]
         used += n
         cl[i], ql[i], qoff[i] = c, q, c - q
-    if used > KV_POOL_PAGES - 1:
+    if used > pool_pages - 1:
         raise ValueError("case needs more pages than the pool holds")
     t = int(ql.sum()) + pad_tokens
-    shape = (KV_POOL_PAGES, PAGE_SIZE, nkv, d)
+    shape = (pool_pages, PAGE_SIZE, nkv, d)
     kf = torch.randn(shape, generator=g, device=dev)
     vf = torch.randn(shape, generator=g, device=dev)
     if int8:
@@ -244,24 +263,28 @@ def make_case(lanes, *, nh, nkv, dtype, int8=False, window=None,
 
 
 def case_work(c):
-    """(bytes, flops) the function needs on this data (bf16 pages, no
-    window — the timed cases): q read and the output written once, the
-    page-table rows and per-token metadata, each lane's live K/V (keys
-    below its last token's visible end) read once; 4*D flops per visible
-    (token, query head, key)."""
+    """(bytes, flops) the function needs on this data (bf16 pages, the
+    timed cases): q read and the output written once, the page-table
+    rows and per-token metadata, each lane's live K/V (the keys some
+    token of the lane sees: below its visible end, inside its window)
+    read once; 4*D flops per visible (token, query head, key)."""
     q, kp = c["q"], c["k"]
     t, nh, d = q.shape
     per_key = 2 * kp.shape[2] * d * kp.element_size()
     pos, lane, cl = (c[k].tolist() for k in ("pos", "lane", "cl"))
-    live = {}
+    win = c["window"] or 0
+    span = {}
     flops = 0
     for tok in range(t):
         hi = min(pos[tok] + 1, cl[lane[tok]])
-        flops += 4 * hi * nh * d
-        live[lane[tok]] = max(live.get(lane[tok], 0), hi)
+        lo = max(0, pos[tok] - win + 1) if win else 0
+        flops += 4 * max(0, hi - lo) * nh * d
+        a, b = span.get(lane[tok], (hi, 0))
+        span[lane[tok]] = (min(a, lo), max(b, hi))
     meta = 4 * (c["pt"].numel() + 3 * len(cl) + 2 * t)
-    nbytes = (2 * q.numel() * q.element_size() + sum(live.values())
-              * per_key + meta)
+    nbytes = (2 * q.numel() * q.element_size()
+              + sum(max(0, b - a) for a, b in span.values()) * per_key
+              + meta)
     return nbytes, flops
 
 
@@ -272,9 +295,10 @@ def bound(nbytes, flops, peak=BF16_FLOPS):
 
 
 def sdpa_inputs(c):
-    """The case (bf16 pages, no window) gathered to a contiguous per-lane
-    cache for one ``scaled_dot_product_attention`` call: q [L, H, Smax,
-    D], K/V [L, KV, Kmax, D], a boolean mask [L, 1, Smax, Kmax]."""
+    """The case (bf16 pages) gathered to a contiguous per-lane cache for
+    one ``scaled_dot_product_attention`` call: q [L, H, Smax, D], K/V [L,
+    KV, Kmax, D], a boolean mask [L, 1, Smax, Kmax] (causal, the context
+    and the window)."""
     import torch
     q, pt, cl, ql, qoff = (c[k] for k in ("q", "pt", "cl", "ql", "qoff"))
     nl, smax, kmax = len(ql), int(ql.max()), int(cl.max())
@@ -297,6 +321,8 @@ def sdpa_inputs(c):
                 .transpose(0, 1)
         qpos = off + torch.arange(n, device=dev)[:, None]
         mask[i, 0, :n] = (kpos[None] <= qpos) & (kpos[None] < ctx)
+        if c["window"]:
+            mask[i, 0, :n] &= kpos[None] > qpos - c["window"]
     return qs, ks, vs, mask
 
 
@@ -349,14 +375,32 @@ def k5_rect(c, rows):
     return c["q"].reshape(t // rows, rows, nh, d), c["qoff"]
 
 
+# a mixed step of the ragged phase's Mistral engine: 7 decode lanes (their
+# contexts across and past the 4096 window) and a 256-token prefill chunk
+# at context 6300, 9 lanes and 264 tokens as the engine packs them
+RAGGED_LANES = [(81, 1), (333, 1), (733, 1), (1533, 1), (2133, 1),
+                (4533, 1), (5233, 1), (6300, 256)]
+RAGGED_CASE_NAME = ("mistral ragged step GQA 32:8 window 4096, 7 decode "
+                    "lanes + a 256-token chunk at 6300, T 264, L 9")
+
+
+def _ragged_case():
+    import torch
+    return dict(nh=32, nkv=8, dtype=torch.bfloat16, window=4096,
+                pad_tokens=1, pad_lanes=1, max_pages=8192 // PAGE_SIZE,
+                pool_pages=2048)
+
+
 def kernel_phase(dev="cuda"):
     """K5 against its plain version at the serving path's shapes and at the
     split form's boundaries, through the token-packed entry (both forms
     and the device-built tile plan) and the engine's rectangular one (one
     form each); planted faults the same comparison must reject; times at
     the engine's decode and prefill shapes for LLaMA-2-7B (MHA) and
-    Mistral's GQA 32:8, through the rectangular entry the engine calls.
-    Returns the largest bf16 error and the timings."""
+    Mistral's GQA 32:8, through the rectangular entry the bucketed step
+    calls, and at the ragged step's mixed shape through the token-packed
+    entry over a prebuilt plan. Returns the largest bf16 error and the
+    timings."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.serving import attention as A
@@ -371,6 +415,7 @@ def kernel_phase(dev="cuda"):
               (4096, 1)]
     bf16 = torch.bfloat16
     checks = [
+        (RAGGED_CASE_NAME, RAGGED_LANES, _ragged_case()),
         ("llama2_7b decode bf16", decode, dict(nh=32, nkv=32, dtype=bf16)),
         ("llama2_7b prefill bf16", prefill,
          dict(nh=32, nkv=32, dtype=bf16)),
@@ -508,10 +553,36 @@ def kernel_phase(dev="cuda"):
               f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{nbytes} B, {flops} flop)", flush=True)
+    # the ragged step's token-packed call: both forms over the plan the
+    # engine builds once a step, Mistral's GQA and window
+    c = make_case(RAGGED_LANES, seed=100, dev=dev, **_ragged_case())
+    args = (c["q"], c["k"], c["v"], c["pt"], c["cl"], c["pos"], c["lane"])
+    kw_a = dict(scale=c["scale"], window=c["window"])
+    plan = A.tile_plan(c["lane"], A.tile_tokens(4), c["pt"].shape[0])
+    ms = graph_ms(lambda: A.ragged_paged_attention_cuda(
+        *args, tiles=plan, **kw_a), iters=20)
+    plain_ms = cuda_ms(lambda: A.ragged_paged_attention_plain(*args, **kw_a),
+                       iters=3, warmup=1)
+    qs, ks, vs, mask = sdpa_inputs(c)
+    ks, vs = (x.repeat_interleave(4, dim=1) for x in (ks, vs))
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, scale=c["scale"]), iters=20)
+    del qs, ks, vs, mask
+    nbytes, flops = case_work(c)
+    bound_ms, bound_by = bound(nbytes, flops)
+    timings["ragged_gqa"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bytes=nbytes, flops=flops,
+        tokens=c["q"].shape[0], kv_heads=8)
+    print(f"kernel time ragged_gqa ({RAGGED_CASE_NAME}): kernels "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} "
+          "flop)", flush=True)
     print("kernel time K5: the kernels of the engine's [B, S] call "
           "(decode: the split form and its combine; prefill: the tile "
-          "form) and sdpa (on K/V gathered per lane; GQA: repeated to 32 "
-          "heads) replayed from CUDA graphs; the call with its Python "
+          "form) and of the ragged step's token-packed call (both forms), "
+          "and sdpa (on K/V gathered per lane; GQA: repeated to 32 heads) "
+          "replayed from CUDA graphs; the [B, S] call with its Python "
           "timed back to back", flush=True)
     return worst, timings
 
@@ -2406,72 +2477,116 @@ COSINE_MIN = 0.999        # engine vs dense last-prompt-token logits
 # the bf16 noise between the chunked paged path and the dense forward
 # (max abs logit difference 0.19-0.23 at full depth on an H100)
 MARGIN = 0.5
+# the ragged phase: Mistral-7B, prompts across and past its 4096 window
+# (20.6k prompt tokens), three greedy ones longer than the window
+RAGGED_PROMPT_LENS = (48, 300, 700, 1500, 2100, 4500, 5200, 6300)
+RAGGED_SAMPLED = (1, 3)
+RAGGED_POOL_PAGES = 2048
+RAGGED_MAX_SEQ = 8192
+PROFILE_STEPS = 3
 
 
-def engine_phase(cfg, smi, dev=None, profile_steps=0):
+def warm_up(eng, vocab):
+    """First uses of every step class before the timed run: 8 requests
+    arriving at once ramp the decode batch through every bucket, once
+    greedy and once sampling (the ragged step's two token capacities
+    come up on the way). On the card each class's CUDA graph is captured
+    here."""
+    import numpy as np
+    for sampled in (False, True):
+        for i in range(8):
+            eng.add_request(np.arange(1 + i, 9 + i, dtype=np.int32) % vocab,
+                            max_new_tokens=16, do_sample=sampled, top_k=50,
+                            seed=i)
+        eng.run()
+
+
+def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
+                 ragged=False, prompt_lens=PROMPT_LENS, sampled=SAMPLED,
+                 num_pages=KV_POOL_PAGES, max_seq_len=None):
     import numpy as np
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving import attention as A
 
+    on_card = torch.device(dev or "cuda").type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     layers = cfg.num_hidden_layers
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     model.eval()
-    print(f"model: llama2_7b width h={cfg.hidden_size} "
-          f"L={cfg.num_hidden_layers} heads={cfg.num_attention_heads} "
-          f"ffn={cfg.intermediate_size} vocab={cfg.vocab_size}, "
+    print(f"model: {label} width h={cfg.hidden_size} "
+          f"L={cfg.num_hidden_layers} heads={cfg.num_attention_heads}/"
+          f"{cfg.num_key_value_heads or cfg.num_attention_heads} "
+          f"ffn={cfg.intermediate_size} vocab={cfg.vocab_size} window="
+          f"{cfg.sliding_window}, "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
-          f"params bf16, built in {time.perf_counter() - t0:.1f} s",
+          f"params {cfg.dtype}, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    first_logits = {}
+    first_logits, first_at = {}, {}
     eng = None
 
     def on_event(ev):
         if ev["type"] == "token" and ev["req_id"] not in first_logits:
-            first_logits[ev["req_id"]] = eng.last_logits[0].clone()
+            first_logits[ev["req_id"]] = eng.logits_row(ev["req_id"]).clone()
+            first_at[ev["req_id"]] = time.perf_counter()
 
-    eng = ServingEngine(model, page_size=PAGE_SIZE,
-                        num_pages=KV_POOL_PAGES, max_batch=8,
-                        prefill_chunk=256, on_event=on_event, device=dev)
+    eng = ServingEngine(model, page_size=PAGE_SIZE, num_pages=num_pages,
+                        max_batch=8, prefill_chunk=256, on_event=on_event,
+                        device=dev, ragged=ragged, max_seq_len=max_seq_len)
     print(f"kv pool: {eng.cache.num_pages} pages x {PAGE_SIZE} tokens, "
           f"{eng.cache.bytes_total / 2 ** 30:.2f} GiB "
-          f"{eng.cache_dtype}", flush=True)
-    # warm-up request: library initialisation stays out of the numbers
-    eng.add_request(np.arange(1, 9, dtype=np.int32), max_new_tokens=2)
-    eng.run()
+          f"{eng.cache_dtype}; {'ragged' if ragged else 'bucketed'} step",
+          flush=True)
+    t_warm = time.perf_counter()
+    warm_up(eng, cfg.vocab_size)
+    m = eng.metrics
+    captured_warm = m.graphs_captured.value
+    print(f"warm-up: {captured_warm} CUDA graphs captured "
+          f"({m.step_program_classes.value:.0f} step classes) in "
+          f"{time.perf_counter() - t_warm:.1f} s", flush=True)
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
-               for n in PROMPT_LENS]
+               for n in prompt_lens]
     A.reset_stats()
-    dispatches0 = eng.metrics.step_dispatches.value
-    chunks0 = eng.metrics.prefill_chunks.value
+    first_logits.clear()
+    dispatches0 = m.step_dispatches.value
+    fetches0 = m.step_fetches.value
+    chunks0 = m.prefill_chunks.value
+    replays0 = m.graph_replays.value
     t_start = time.perf_counter()
     rids = []
     for i, p in enumerate(prompts):
-        sampled = i in SAMPLED
+        samp = i in sampled
         rids.append(eng.add_request(
-            p, max_new_tokens=NEW_TOKENS, do_sample=sampled,
-            temperature=0.8 if sampled else 1.0,
-            top_k=50 if sampled else 0, top_p=0.9 if sampled else 1.0,
+            p, max_new_tokens=NEW_TOKENS, do_sample=samp,
+            temperature=0.8 if samp else 1.0,
+            top_k=50 if samp else 0, top_p=0.9 if samp else 1.0,
             seed=1000 + i))
-    decode_tokens = decode_s = 0.0
-    steps = 0
+    step_s, decode_steps = [], []       # decode_steps: (seconds, lanes)
     while not eng.scheduler.all_done():
-        chunks = eng.metrics.prefill_chunks.value
+        chunks = m.prefill_chunks.value
         t = time.perf_counter()
         events = eng.step()
         dt = time.perf_counter() - t
-        steps += 1
-        if eng.metrics.prefill_chunks.value == chunks:
-            decode_s += dt
-            decode_tokens += sum(e["type"] == "token" for e in events)
+        step_s.append(dt)
+        if m.prefill_chunks.value == chunks:
+            decode_steps.append(
+                (dt, sum(e["type"] == "token" for e in events)))
+    decode_s = sum(d for d, _ in decode_steps)
+    decode_tokens = sum(n for _, n in decode_steps)
     wall = time.perf_counter() - t_start
+    steps = len(step_s)
+    ttft = [first_at[r] - t_start for r in rids]
     counts = dict(A.stats)
-    forwards = eng.metrics.step_dispatches.value - dispatches0
-    prefills = eng.metrics.prefill_chunks.value - chunks0
+    forwards = m.step_dispatches.value - dispatches0
+    fetches = m.step_fetches.value - fetches0
+    prefills = m.prefill_chunks.value - chunks0
+    replays = m.graph_replays.value - replays0
+    captured_run = m.graphs_captured.value - captured_warm
 
     res = eng.results()
     for rid, p in zip(rids, prompts):
@@ -2481,97 +2596,182 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0):
             raise AssertionError(f"request {rid} (prompt {p.size}) "
                                  f"finished {r['finish_reason']} with "
                                  f"{len(r['tokens'])} tokens")
-    # one K5 call a layer and forward: a prefill chunk's through the tile
-    # form, a decode step's through the split form and its combine
-    want = {"kernel_launches": layers * forwards, "plain_calls": 0,
-            "tile_launches": layers * prefills,
-            "decode_launches": layers * (forwards - prefills),
-            "combine_launches": layers * (forwards - prefills)}
+    if ragged:
+        # one K5 call a layer and dispatch, both forms over the plan
+        want = {k: layers * forwards for k in (
+            "kernel_launches", "tile_launches", "decode_launches",
+            "combine_launches")}
+        want["plain_calls"] = 0
+        if not (forwards == fetches == steps
+                and m.step_program_classes.value <= 2):
+            raise AssertionError(
+                f"ragged step: {forwards} dispatches and {fetches} fetches "
+                f"in {steps} steps (want one each a step), "
+                f"{m.step_program_classes.value} program classes (<= 2)")
+    else:
+        # one K5 call a layer and forward: a prefill chunk's through the
+        # tile form, a decode step's through the split form and its combine
+        want = {"kernel_launches": layers * forwards, "plain_calls": 0,
+                "tile_launches": layers * prefills,
+                "decode_launches": layers * (forwards - prefills),
+                "combine_launches": layers * (forwards - prefills)}
     if counts != want:
         raise AssertionError(
             f"attention counts {counts}: want {want} ({layers} layers x "
-            f"{forwards} forwards, {prefills} of them prefill chunks)")
+            f"{forwards} forwards, {prefills} of them with a prefill chunk)")
+    if on_card and replays != forwards:
+        raise AssertionError(f"{replays} CUDA graph replays for {forwards} "
+                             "forwards: a step ran outside its graph")
     print(f"engine ok: {len(rids)} requests x {NEW_TOKENS} tokens in "
-          f"{steps} steps, {forwards} forwards, kernel launches "
-          f"{counts['kernel_launches']} = {layers} x {forwards}: tile form "
-          f"{counts['tile_launches']} = {layers} x {prefills} prefill "
-          f"chunks, split form {counts['decode_launches']} and combine "
-          f"{counts['combine_launches']} = {layers} x "
-          f"{forwards - prefills} decode steps; plain calls 0", flush=True)
+          f"{steps} steps, {forwards} forwards ({prefills} with a prefill "
+          f"chunk), {fetches} fetches, {m.step_program_classes.value:.0f} "
+          f"program classes; CUDA graphs {m.graphs_captured.value} "
+          f"captured ({captured_run} in the timed run), {replays} replays "
+          f"= forwards; K5 launches {counts}; plain calls 0", flush=True)
 
-    worst_cos = 1.0
-    for i, (rid, p) in enumerate(zip(rids, prompts)):
-        if i in SAMPLED:
-            continue
-        with torch.inference_mode():
-            dense = model(torch.as_tensor(p, device=model.device)
-                          .long()[None])[0, -1].float()
-        got = first_logits[rid]
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"request {rid}: non-finite logits")
-        cos = torch.nn.functional.cosine_similarity(got, dense, dim=0)
-        cos = cos.item()
-        top2 = dense.topk(2).values
-        margin = (top2[0] - top2[1]).item()
-        diff = (got - dense).abs().max().item()
-        worst_cos = min(worst_cos, cos)
-        agree = int(got.argmax()) == int(dense.argmax())
-        print(f"dense check: prompt {p.size}: cosine {cos:.6f}, max abs "
-              f"diff {diff:.4f}, top-2 margin {margin:.4f}, argmax "
-              f"{'equal' if agree else 'differs'}", flush=True)
-        if cos < COSINE_MIN:
-            raise AssertionError(f"prompt {p.size}: cosine {cos} < "
-                                 f"{COSINE_MIN}")
-        if margin > MARGIN and not agree:
-            raise AssertionError(f"prompt {p.size}: argmax differs at "
-                                 f"margin {margin} > {MARGIN}")
-        if res[rid]["tokens"][0] != int(got.argmax()):
-            raise AssertionError(f"prompt {p.size}: first greedy token "
-                                 "is not the argmax of its logits")
+    greedy = [i for i in range(len(prompts)) if i not in sampled]
+    worst_cos, tf = dense_checks(model, prompts, [res[r]["tokens"]
+                                                  for r in rids],
+                                 [first_logits[r] for r in rids], greedy)
 
-    m = eng.metrics.export()
+    ex = m.export()
     tokens = len(rids) * NEW_TOKENS
     summary = dict(
-        card=smi, layers=layers, requests=len(rids), steps=steps,
-        forwards=forwards, wall_s=wall, output_tok_s=tokens / wall,
+        card=smi, label=label, ragged=ragged, layers=layers,
+        requests=len(rids), prompt_tokens=int(sum(prompt_lens)),
+        steps=steps, forwards=forwards, fetches=fetches,
+        program_classes=ex["step_program_classes"],
+        graphs_captured=ex["graphs_captured"], graph_replays=replays,
+        wall_s=wall, output_tok_s=tokens / wall,
         decode_tok_s=(decode_tokens / decode_s if decode_s else None),
-        ttft_p50_s=m["ttft_s"]["p50"], ttft_max_s=m["ttft_s"]["max"],
-        step_p50_s=m["step_duration_s"]["p50"],
-        step_max_s=m["step_duration_s"]["max"],
-        preemptions=m["preemptions"], worst_cosine=worst_cos,
-        launches=counts["kernel_launches"],
+        ttft_p50_s=float(np.percentile(ttft, 50)), ttft_max_s=max(ttft),
+        step_p50_s=float(np.percentile(step_s, 50)), step_max_s=max(step_s),
+        decode_steps=len(decode_steps),
+        decode_step_p50_s=(float(np.percentile(
+            [d for d, _ in decode_steps], 50)) if decode_steps else None),
+        decode_lanes_mean=(decode_tokens / len(decode_steps)
+                           if decode_steps else None),
+        preemptions=ex["preemptions"], worst_cosine=worst_cos,
+        teacher_forced=tf, launches=counts["kernel_launches"],
         form_launches={k: counts[k] for k in (
             "tile_launches", "decode_launches", "combine_launches")},
         peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
-                      if model.device.type == "cuda" else None))
-    print(f"serving [{smi}]: TTFT p50 {summary['ttft_p50_s']:.4f} s "
-          f"max {summary['ttft_max_s']:.4f} s (8 requests queued at once)"
-          , flush=True)
-    print(f"serving [{smi}]: decode {summary['decode_tok_s']:.1f} tok/s "
-          f"(decode-only steps), output {summary['output_tok_s']:.1f} "
-          f"tok/s over {wall:.3f} s", flush=True)
-    print(f"serving [{smi}]: step p50 {summary['step_p50_s']:.4f} s max "
-          f"{summary['step_max_s']:.4f} s", flush=True)
-    if profile_steps:
-        summary["profile"] = profile_decode(eng, cfg, profile_steps, smi)
+                      if on_card else None))
+    tag = f"serving {label} [{smi}]"
+    print(f"{tag}: TTFT p50 {summary['ttft_p50_s']:.4f} s max "
+          f"{summary['ttft_max_s']:.4f} s ({len(rids)} requests queued at "
+          "once)", flush=True)
+    print(f"{tag}: decode {summary['decode_tok_s']:.1f} tok/s over the "
+          f"{len(decode_steps)} decode-only steps (p50 "
+          f"{summary['decode_step_p50_s']:.4f} s, "
+          f"{summary['decode_lanes_mean']:.2f} lanes on average), output "
+          f"{summary['output_tok_s']:.1f} tok/s over {wall:.3f} s",
+          flush=True)
+    print(f"{tag}: step p50 {summary['step_p50_s']:.4f} s max "
+          f"{summary['step_max_s']:.4f} s; peak memory "
+          f"{summary['peak_mem_gib']} GiB", flush=True)
+    if on_card:
+        summary["profile"] = profile_decode(
+            eng, cfg, max(profile_steps, PROFILE_STEPS), smi, label,
+            mixed=ragged)
     return summary
 
 
-def profile_decode(eng, cfg, n_steps, smi):
-    """``torch.profiler`` over ``n_steps`` decode-only steps of a full
-    batch of 8 (context ~512): wall vs device busy time per step and the
-    kernels that take the device time."""
+def dense_checks(model, prompts, tokens, first_logits, greedy):
+    """Each greedy request against one dense forward of the same model
+    (plain float32 attention) over its prompt and its generated tokens
+    but the last: the first token's logits within cosine COSINE_MIN of
+    the dense last-prompt-token logits; and, teacher-forced, every
+    generated token the dense argmax at its position wherever the dense
+    top-2 margin exceeds MARGIN (a graph that replayed stale positions,
+    page tables or slots fails here). Returns (worst cosine, per-request
+    readings)."""
     import numpy as np
+    import torch
+
+    worst_cos, readings = 1.0, []
+    for i in greedy:
+        p, toks = prompts[i], tokens[i]
+        seq = np.concatenate([p, np.asarray(toks[:-1], np.int32)])
+        with torch.inference_mode():
+            h = model.llama(torch.as_tensor(seq, device=model.device)
+                            .long()[None])[0, p.size - 1:]
+            dense = model.lm_head(h).float()          # [new tokens, V]
+        got = first_logits[i]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"prompt {p.size}: non-finite logits")
+        cos = torch.nn.functional.cosine_similarity(got, dense[0],
+                                                    dim=0).item()
+        diff = (got - dense[0]).abs().max().item()
+        worst_cos = min(worst_cos, cos)
+        top2 = dense.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu()
+        agree = (dense.argmax(-1).cpu() == torch.as_tensor(toks))
+        firm = margin > MARGIN
+        bad = (firm & ~agree).nonzero()[:, 0].tolist()
+        readings.append(dict(prompt=int(p.size), cosine=cos, max_diff=diff,
+                             firm=int(firm.sum()), agree=int(agree.sum()),
+                             disagree_firm=bad))
+        print(f"dense check: prompt {p.size}: first token cosine {cos:.6f},"
+              f" max abs diff {diff:.4f}; teacher-forced: {int(agree.sum())}"
+              f" of {len(toks)} tokens the dense argmax, {int(firm.sum())} "
+              f"past the margin {MARGIN}, disagreeing there: {bad}",
+              flush=True)
+        if cos < COSINE_MIN:
+            raise AssertionError(f"prompt {p.size}: cosine {cos} < "
+                                 f"{COSINE_MIN}")
+        if bad:
+            raise AssertionError(f"prompt {p.size}: tokens {bad} differ "
+                                 f"from the dense argmax past the margin")
+        if toks[0] != int(got.argmax()):
+            raise AssertionError(f"prompt {p.size}: first greedy token "
+                                 "is not the argmax of its logits")
+    return worst_cos, readings
+
+
+def profile_decode(eng, cfg, n_steps, smi, label="llama2_7b", mixed=False):
+    """``torch.profiler`` over ``n_steps`` decode-only steps of a full
+    batch of 8 (context ~512): device busy time per step and the kernels
+    that take it, beside the wall of ``n_steps`` untraced steps just
+    before (the trace's own wall is inflated by the tracing of every
+    kernel a graph replays). ``mixed``: first the same over steps that
+    carry a 256-token prefill chunk beside decode lanes."""
+    import numpy as np
+    import torch
+
+    def profiled(what):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        out = trace_steps(eng.step, n_steps, what, smi)
+        out["untraced_wall_ms"] = wall_ms
+        print(f"profile [{smi}]: {what}: untraced wall {wall_ms:.3f} ms, "
+              f"device busy {out['device_ms']:.3f} ms (idle "
+              f"{100 * (1 - out['device_ms'] / wall_ms):.1f} %), "
+              f"{out['kernels']:.0f} kernels", flush=True)
+        return out
 
     rng = np.random.default_rng(1)
+    # enough new tokens that no lane finishes before the decode profile:
+    # the 16 prefill steps (2 chunks each) decode the lanes already in
     for _ in range(8):
         eng.add_request(rng.integers(1, cfg.vocab_size, 512)
-                        .astype(np.int32), max_new_tokens=n_steps + 4)
+                        .astype(np.int32), max_new_tokens=2 * n_steps + 24)
+    out = {}
+    if mixed:
+        eng.step()
+        out["mixed"] = profiled(f"{label} mixed step (a 256-token chunk "
+                                "beside decode lanes)")
     while eng.scheduler.waiting or eng.scheduler.prefill_queue:
         eng.step()
     eng.step()
-    out = trace_steps(eng.step, n_steps, "decode step (8 lanes, ctx ~512)",
-                      smi)
+    lanes = len(eng.scheduler.running)
+    out["decode"] = profiled(f"{label} decode step ({lanes} lanes, ctx "
+                             "~512-560)")
+    out["decode"]["lanes"] = lanes
     eng.run()
     return out
 
@@ -2746,6 +2946,15 @@ def main(argv=None):
         res["engine"] = phase("serve", engine_phase, LlamaConfig.llama2_7b(
             dtype="bfloat16", use_flash_attention=False), smi,
             profile_steps=args.profile)
+    if "ragged" in phases:
+        # the serve phase's model is gone (phase() collects it): one 7B
+        # model and its pool at a time
+        res["ragged"] = phase(
+            "ragged", engine_phase, LlamaConfig.mistral_7b(
+                dtype="bfloat16", use_flash_attention=False), smi,
+            profile_steps=args.profile, label="mistral_7b", ragged=True,
+            prompt_lens=RAGGED_PROMPT_LENS, sampled=RAGGED_SAMPLED,
+            num_pages=RAGGED_POOL_PAGES, max_seq_len=RAGGED_MAX_SEQ)
 
     kernels = kernel_rows(res)
     if args.out:
@@ -2764,7 +2973,7 @@ def main(argv=None):
 
 
 PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
-          "mistral_path", "gpt", "gpt_path", "serve")
+          "mistral_path", "gpt", "gpt_path", "serve", "ragged")
 
 
 def kernel_rows(res):
@@ -2796,6 +3005,18 @@ def kernel_rows(res):
             prefill_plain_ms=pf["plain_ms"], prefill_bound_ms=pf["bound_ms"],
             prefill_bound_by=pf["bound_by"],
             prefill_library_ms=pf["library_ms"], shapes=timings))
+        # the ragged step's token-packed call (Mistral's GQA and window,
+        # both forms over the step's plan): launches from the ragged run
+        rg, ragged = timings["ragged_gqa"], res.get("ragged", {})
+        rows.append(dict(
+            name="ragged_paged_attention_packed_gqa_window", route="cuda",
+            source="paddle_tpu_torch/serving/csrc/ragged_paged_attention.cu",
+            replaces="paddle_tpu/serving/attention.py:289",
+            launches=ragged.get("launches"),
+            form_launches=ragged.get("form_launches"),
+            max_abs_err=worst_err, ms=rg["ms"], plain_ms=rg["plain_ms"],
+            bound_ms=rg["bound_ms"], bound_by=rg["bound_by"],
+            library_ms=rg["library_ms"]))
     launches = res.get("train", {}).get("launches", {})
     # the bf16 kernels at head_dim 64 and 128
     fwd_src = "paddle_tpu_torch/ops/csrc/fa_fwd_sm90.cuh"

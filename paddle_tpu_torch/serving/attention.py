@@ -13,7 +13,11 @@ Two entries with the JAX package's signatures and layouts:
 Pages are ``[NP, PS, KV, D]`` (bf16/f32), or ``(codes int8 [NP, PS, KV,
 D], scales f32 [NP, PS, KV])`` tuples for the int8 cache. Both entries
 reduce to one token-level function of ``(q, pages, page_table,
-context_lens, positions, token_lane)``:
+context_lens, positions, token_lane)``: each builds a :class:`Plan` (each
+token's lane and position, and how the kernel's forms split the tokens;
+:func:`paged_plan`, :func:`ragged_plan`) and calls
+:func:`planned_attention`, which the serving step calls in every layer
+with a plan it builds once a step:
 
 - on CUDA tensors, :func:`ragged_paged_attention_cuda` launches the
   hand-written Hopper kernels (``csrc/ragged_paged_attention.cu``, the
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +55,7 @@ from ..cuda_build import KernelLibrary
 
 __all__ = ["paged_attention", "paged_attention_ref",
            "ragged_paged_attention", "ragged_paged_attention_cuda",
+           "Plan", "paged_plan", "ragged_plan", "planned_attention",
            "ragged_paged_attention_plain", "split_partials_plain",
            "combine_splits_plain", "split_count", "tile_tokens",
            "tile_capable", "tile_plan", "quantize_q8", "stats",
@@ -94,27 +100,47 @@ def paged_attention(q, k_pages, v_pages, page_table, context_lens,
     absolute position of each row's first query. Returns [B,S,H,D] in
     q.dtype."""
     _check_spmd(spmd)
-    return _rectangular(_attend, q, k_pages, v_pages, page_table,
-                        context_lens, q_offsets, scale=scale, window=window)
-
-
-def _rectangular(fn, q, k_pages, v_pages, page_table, context_lens,
-                 q_offsets, *, scale, window):
-    """Run token-level ``fn`` on the rectangular surface: row b is a lane
-    of query_len S whose tokens sit at q_offsets[b] + [0, S). The kernel
-    dispatch (:func:`_attend`) is told S, so it can pick its form from
-    the shape alone."""
     b, s, nh, d = q.shape
-    dev = q.device
-    lane = torch.arange(b, dtype=torch.int32,
-                        device=dev).repeat_interleave(s)
+    return planned_attention(
+        q.reshape(b * s, nh, d), k_pages, v_pages, page_table,
+        context_lens, paged_plan(q_offsets, s), scale=scale,
+        window=window).reshape(b, s, nh, d)
+
+
+class Plan(NamedTuple):
+    """Where a call's packed query tokens sit, built once for every
+    layer of a step: each token's lane and absolute position (int32
+    ``[T]``); ``rows`` = S on the rectangular ``[B, S]`` surface (token t
+    of lane t // S), else None; and for the token-packed entry the tile
+    form's plan from :func:`tile_plan`, ``(split_tok, tiles)``, or
+    None."""
+    token_lane: torch.Tensor
+    positions: torch.Tensor
+    rows: int | None = None
+    tiles: tuple | None = None
+
+
+def paged_plan(q_offsets, s):
+    """The plan of the rectangular surface: row b is a lane of query_len
+    S whose tokens sit at q_offsets[b] + [0, S). The kernel dispatch is
+    told S, so it picks its form from the shape alone."""
+    b = q_offsets.shape[0]
+    dev = q_offsets.device
+    lane = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(s)
     pos = (q_offsets.to(torch.int32)[:, None]
            + torch.arange(s, dtype=torch.int32, device=dev)[None, :])
-    extra = {"rows": s} if fn is _attend else {}
-    out = fn(q.reshape(b * s, nh, d), k_pages, v_pages, page_table,
-             context_lens, pos.reshape(-1), lane, scale=scale,
-             window=window, **extra)
-    return out.reshape(b, s, nh, d)
+    return Plan(lane, pos.reshape(-1), rows=s)
+
+
+def ragged_plan(query_lens, q_offsets, t, group):
+    """The plan of the token-packed entry for ``t`` tokens of ``L =
+    len(query_lens)`` lanes and a GQA group of ``group`` query heads:
+    each token's (lane, position) (padding tokens past
+    ``sum(query_lens)`` go to the last lane at position 0) and the tile
+    form's plan, all on the device with no host read."""
+    lane, pos = _token_lanes(query_lens, q_offsets, t)
+    return Plan(lane, pos, tiles=tile_plan(lane, tile_tokens(group),
+                                           query_lens.shape[0]))
 
 
 def _token_lanes(query_lens, q_offsets, t):
@@ -140,29 +166,38 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table,
     q_offsets [L] int32. Returns [T,H,D] in q.dtype; padding rows are
     garbage but finite."""
     _check_spmd(spmd)
-    lane, pos = _token_lanes(query_lens, q_offsets, q.shape[0])
-    return _attend(q, k_pages, v_pages, page_table, context_lens, pos,
-                   lane, scale=scale, window=window)
+    nkv = (k_pages[0] if isinstance(k_pages, tuple) else k_pages).shape[2]
+    plan = ragged_plan(query_lens, q_offsets, q.shape[0], q.shape[1] // nkv)
+    return planned_attention(q, k_pages, v_pages, page_table, context_lens,
+                             plan, scale=scale, window=window)
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, context_lens,
                         q_offsets, *, scale, window=None):
     """The plain version at the rectangular [B,S] surface, on any
     device (the comparison side of the kernel's checks)."""
-    return _rectangular(ragged_paged_attention_plain, q, k_pages, v_pages,
-                        page_table, context_lens, q_offsets, scale=scale,
-                        window=window)
+    b, s, nh, d = q.shape
+    plan = paged_plan(q_offsets, s)
+    return ragged_paged_attention_plain(
+        q.reshape(b * s, nh, d), k_pages, v_pages, page_table,
+        context_lens, plan.positions, plan.token_lane, scale=scale,
+        window=window).reshape(b, s, nh, d)
 
 
-def _attend(q, k_pages, v_pages, page_table, context_lens, positions,
-            token_lane, *, scale, window, rows=None):
+def planned_attention(q, k_pages, v_pages, page_table, context_lens, plan,
+                      *, scale, window=None):
+    """Attend the packed tokens ``q [T,H,D]`` placed by ``plan``
+    (:func:`paged_plan`, :func:`ragged_plan`): the CUDA kernels on CUDA
+    tensors, the plain version on CPU tensors. The serving step builds
+    its plan once and calls this in every layer."""
     if not q.is_cuda:
         return ragged_paged_attention_plain(
-            q, k_pages, v_pages, page_table, context_lens, positions,
-            token_lane, scale=scale, window=window)
+            q, k_pages, v_pages, page_table, context_lens, plan.positions,
+            plan.token_lane, scale=scale, window=window)
     return ragged_paged_attention_cuda(
-        q, k_pages, v_pages, page_table, context_lens, positions,
-        token_lane, scale=scale, window=window, rows=rows)
+        q, k_pages, v_pages, page_table, context_lens, plan.positions,
+        plan.token_lane, scale=scale, window=window, rows=plan.rows,
+        tiles=plan.tiles)
 
 
 def ragged_paged_attention_plain(q, k_pages, v_pages, page_table,
@@ -391,7 +426,7 @@ def _check_tensor(name, x, device, dtypes, ndim):
 
 def ragged_paged_attention_cuda(q, k_pages, v_pages, page_table,
                                 context_lens, positions, token_lane, *,
-                                scale, window=None, rows=None):
+                                scale, window=None, rows=None, tiles=None):
     """Launch the Hopper kernels on ``torch.cuda.current_stream()``.
 
     q [T,H,D] bf16/f32 on a CUDA device; pages [NP,PS,KV,D] bf16/f32 or
@@ -401,8 +436,10 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_table,
     [0, NP), as the allocator guarantees. ``rows`` = S says the tokens
     are the rectangular [B, S] layout (token t of lane t // S): S = 1
     takes the split form alone, S >= 2 the tile form alone where it
-    applies (:func:`tile_capable`). Without ``rows`` the tile form's plan
-    is built on the device (:func:`tile_plan`) and both forms launch.
+    applies (:func:`tile_capable`). Without ``rows`` both forms launch
+    over the tile form's plan ``tiles`` = ``(split_tok, tiles)`` of these
+    tokens from :func:`tile_plan` (at the GQA group's
+    :func:`tile_tokens`), built here on the device when not given.
     Raises on anything else, and if a launch fails."""
     dev = q.device
     _require(dev.type == "cuda", f"q lies on {dev}; the kernel needs CUDA")
@@ -464,7 +501,7 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_table,
             if rows is not None:
                 tiles, n_tiles = None, (t // rows) * -(-rows // tt)
             else:
-                split_tok, tiles = tile_plan(token_lane, tt, nl)
+                split_tok, tiles = tiles or tile_plan(token_lane, tt, nl)
                 n_tiles = tiles.shape[0]
             _raise_on(lib.rpa_tile(
                 *ins, tiles.data_ptr() if tiles is not None else None,

@@ -1,28 +1,43 @@
 """Continuous-batching inference engine over the paged KV cache
 (counterpart: ``paddle_tpu/serving/engine.py::ServingEngine``, its
-default bucketed path).
+bucketed path and its unified ragged step).
 
 - ``step()`` runs one scheduler iteration: a decode batch of every
   running request plus at most one prefill chunk; ``run()`` loops until
   every request finished.
-- Decode runs at batch buckets (powers of two up to ``max_batch``, S=1);
-  prefill runs at (B=1, S=``prefill_chunk``). Padded lanes are real
+- The bucketed step (the default): decode runs at batch buckets (powers
+  of two up to ``max_batch``, S=1), prefill at (B=1,
+  S=``prefill_chunk``), each its own dispatch. Padded lanes are real
   lanes pointed at the cache's SCRATCH page with context 1, so their
   attention rows stay finite; the host discards them.
-- Every forward goes through :func:`_paged_forward`: per layer, RMSNorm,
-  q/k/v, RoPE from the absolute positions, the step's K/V written into
-  the page pool in place, paged attention (the hand-written CUDA kernel
-  on the card, its plain version on the CPU), o_proj and the SwiGLU MLP.
-  It runs eagerly; the JAX package's ``jit`` has no counterpart here.
-- Sampling runs on the device (:mod:`.sampling`); the host fetches
-  ``[B]`` token ids and logprobs per step.
+- The ragged step (``ragged=True``): the decode lanes and the prefill
+  chunk ride ONE token-packed dispatch over ``L = max_batch + 1`` lanes
+  (K5's token-packed entry), at one of two token capacities,
+  ``max_batch`` (all-decode steps) or ``max_batch + prefill_chunk``,
+  so it has at most two program classes. Every packed token is sampled
+  with its own ``(seed, step)``.
+- Every forward goes through :func:`_paged_forward`: K5's plan once,
+  then per layer RMSNorm, q/k/v, RoPE from the absolute positions, the
+  step's K/V written into the page pool in place, paged attention (the
+  hand-written CUDA kernels on the card, the plain version on the CPU),
+  o_proj and the SwiGLU MLP; then the head and fused sampling
+  (:mod:`.sampling`). The host fetches ``[B]`` (or ``[T]``) token ids
+  and logprobs once a dispatch.
+- On the card each static shape class (a decode bucket or the prefill
+  chunk, each greedy-only or sample-capable; a ragged token capacity)
+  is one CUDA graph, captured at its first use from padding inputs and
+  replayed every step after the step's host arrays are copied into its
+  static inputs: the counterpart of the JAX package's ``jit`` programs.
+  On the CPU the step runs eagerly. All of an engine's graphs share one
+  memory pool, so a step's outputs are valid until the next step.
 - Preemption by page pressure frees the newest live request and requeues
   it for a recompute prefill that keeps its generated tokens.
 
 Arguments of the JAX engine outside this slice (speculative decoding,
 the prefix cache, weight quantization, chaos, the host KV tier, draft
-distillation, the ragged step, tensor parallelism) raise
-``NotImplementedError``.
+distillation, tensor parallelism) raise ``NotImplementedError``. The
+ragged step is chosen by ``ragged=`` alone: the JAX package's
+``PADDLE_TPU_SERVING_RAGGED`` is not read.
 """
 from __future__ import annotations
 
@@ -34,7 +49,8 @@ import torch
 
 from ..device import resolve_device
 from ..nn.functional import fused_rotary_position_embedding
-from .attention import paged_attention
+from . import attention as _attention
+from .attention import paged_plan, planned_attention, ragged_plan
 from .kv_cache import SCRATCH_PAGE, OutOfPages, PagedKVCache
 from .metrics import ServingMetrics
 from .sampling import fused_sample
@@ -45,6 +61,78 @@ __all__ = ["ServingEngine"]
 _CACHE_DTYPES = {"float32": "float32", "bfloat16": "bfloat16",
                  "int8": "int8", torch.float32: "float32",
                  torch.bfloat16: "bfloat16", torch.int8: "int8"}
+
+
+# every input of a step program: its numpy dtype and the value a lane or
+# token that carries no request holds (context 1, the scratch page,
+# neutral sampling: its attention rows stay finite)
+_INPUTS = {"ids": (np.int32, 0), "positions": (np.int32, 0),
+           "slot_map": (np.int32, 0), "pt": (np.int32, SCRATCH_PAGE),
+           "cl": (np.int32, 1), "last_idx": (np.int32, 0),
+           "ql": (np.int32, 0), "qoff": (np.int32, 0),
+           "do_sample": (np.bool_, False), "temperature": (np.float32, 1.0),
+           "top_k": (np.int32, 0), "top_p": (np.float32, 1.0),
+           "seeds": (np.int32, 0), "steps": (np.int32, 0)}
+_SAMPLING = ("do_sample", "temperature", "top_k", "top_p", "seeds", "steps")
+
+
+class _StepClass:
+    """One static shape class of the step program (``key``, its static
+    shape signature): its persistent host input buffers (``host``, numpy
+    views; pinned memory on the card, so their copies to the device are
+    asynchronous) and, on the card, its CUDA graph with static device
+    inputs."""
+
+    def __init__(self, key, shapes, pinned):
+        self.key = key
+        self._host = {}
+        for name, shape in shapes.items():
+            dt, pad = _INPUTS[name]
+            t = torch.from_numpy(np.full(shape, pad, dt))
+            self._host[name] = t.pin_memory() if pinned else t
+        self.host = {name: t.numpy() for name, t in self._host.items()}
+        self.graph = None
+
+    def pad(self, start=0):
+        """Reset every lane (first axis) from ``start`` on to padding."""
+        for name, a in self.host.items():
+            a[start:] = _INPUTS[name][1]
+
+    def run_eager(self, body):
+        return body(self._host)
+
+    def capture(self, body, device, pool):
+        """Capture ``body`` (inputs dict -> outputs) as a CUDA graph.
+        Warm-up (on a side stream, as CUDA graphs need) and capture run
+        on padding inputs, which touch only the scratch page, and count
+        no kernel launch: ``launches`` is the capture's change of K5's
+        counters, added back at every replay."""
+        saved = dict(_attention.stats)
+        self._dev = {name: torch.full(t.shape, _INPUTS[name][1],
+                                      dtype=t.dtype, device=device)
+                     for name, t in self._host.items()}
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body(self._dev)
+        cur.wait_stream(side)
+        before = dict(_attention.stats)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            self._out = body(self._dev)
+        self.launches = {k: _attention.stats[k] - before[k] for k in before}
+        _attention.stats.update(saved)
+        self.graph = graph
+
+    def replay(self):
+        """Copy the host buffers into the static inputs and replay."""
+        for name, dst in self._dev.items():
+            dst.copy_(self._host[name], non_blocking=True)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            _attention.stats[k] += n
+        return self._out
 
 
 def _refuse_unported(**flags):
@@ -83,8 +171,8 @@ class ServingEngine:
             prefix_cache=prefix_cache, draft_model=draft_model is not None,
             speculative_k=speculative_k, weight_quant=weight_quant,
             chaos=chaos is not None, host_pool=host_pool is not None,
-            distill=distill is not None, ragged=ragged,
-            mesh=mesh is not None, tp_degree=(tp_degree or 1) > 1)
+            distill=distill is not None, mesh=mesh is not None,
+            tp_degree=(tp_degree or 1) > 1)
         cfg, core = self._validate_causal_lm(model)
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
@@ -126,8 +214,21 @@ class ServingEngine:
                                        / self.cache.num_pages)
         self.eos = eos_token_id
         self.window = getattr(cfg, "sliding_window", None) or None
-        self._logits_dev = None       # last step's on-device [B,V] logits
-        self._decode_bufs = {}        # per-bucket persistent host buffers
+        # the unified ragged step: L lanes always (max_batch decode + 1
+        # prefill); all-decode steps pack into max_batch tokens, a step
+        # with a prefill chunk pads to the mixed capacity: <= 2 classes
+        self.ragged = bool(ragged)
+        self._ragged_lanes = max_batch + 1
+        self._ragged_tok_small = max_batch
+        self._ragged_tok_mixed = max_batch + prefill_chunk
+        # static shape classes (host buffers, CUDA graphs) by program key
+        self._classes: dict[tuple, _StepClass] = {}
+        self._program_classes = set()  # keys dispatched
+        self._graphs = self.device.type == "cuda"
+        self._graph_pool = (torch.cuda.graph_pool_handle() if self._graphs
+                            else None)
+        self._logits_dev = None       # last dispatch's [N, V] logits
+        self._rows = {}               # req_id -> its row of them
         self._seed_rng = np.random.default_rng()  # seed=None fallback
         self._requests: dict[int, Request] = {}
         self._finished: dict[int, Request] = {}
@@ -192,13 +293,17 @@ class ServingEngine:
                 self.cache.free_seq(r.seq_id)
             self.metrics.deadline_evictions.inc()
             self._record_finish(r, events)
-        if out.decode:
-            self._plain_decode(out.decode, events)
-        if out.prefill is not None:
-            req, start, end = out.prefill
-            # the decode batch may have preempted the prefilling request
-            if req.state == RequestState.PREFILLING:
-                self._prefill_chunk(req, start, end, events)
+        if self.ragged:
+            self._ragged_step(out, events)
+        else:
+            if out.decode:
+                self._plain_decode(out.decode, events)
+            if out.prefill is not None:
+                req, start, end = out.prefill
+                # the decode batch may have preempted the prefilling
+                # request
+                if req.state == RequestState.PREFILLING:
+                    self._prefill_chunk(req, start, end, events)
         if not out.decode and out.prefill is None and not out.expired \
                 and self.scheduler.waiting \
                 and not self.scheduler.live_requests():
@@ -279,10 +384,18 @@ class ServingEngine:
 
     @property
     def last_logits(self):
-        """The last step's float32 logits ``[B, V]`` on the device (row
-        0 of a prefill step is its last prompt token's), or None. Not
-        fetched on the hot path; for parity checks."""
+        """The last dispatch's float32 logits ``[N, V]`` on the device
+        (N lanes of a bucketed step, row 0 of a prefill chunk its last
+        token's; the T packed tokens of a ragged step), or None. Not
+        fetched on the hot path; for parity checks. On the card this is
+        a graph's static output buffer: it is valid until the next step
+        and must be cloned to be kept."""
         return self._logits_dev
+
+    def logits_row(self, req_id):
+        """The row of :attr:`last_logits` that ``req_id``'s token of the
+        last dispatch was drawn from (valid as :attr:`last_logits` is)."""
+        return self._logits_dev[self._rows[req_id]]
 
     # -- internals ---------------------------------------------------------
     @staticmethod
@@ -334,53 +447,11 @@ class ServingEngine:
                   if r.state == RequestState.RUNNING]
         if not active:
             return
-        b = self._build_decode_batch(active)
-        toks, lps = self._run_step(
-            b["ids"], b["positions"], b["pt"], b["cl"], b["slot_map"],
-            b["last_idx"],
-            (b["do_sample"], b["temperature"], b["top_k"], b["top_p"],
-             b["seeds"], b["steps"]),
-            any(r.do_sample for r, _ in active))
-        self.metrics.decode_steps.inc()
-        self.metrics.batch_size.record(len(active))
-        for i, (r, _) in enumerate(active):
-            self._emit_token(r, int(toks[i]), events,
-                             logprob=float(lps[i]))
-
-    def _build_decode_batch(self, active):
-        """Stage the decode batch into PERSISTENT per-bucket host
-        buffers. Padded lanes are explicitly reset each step: context 1,
-        slots at the scratch page, neutral sampling params."""
+        sample_capable = any(r.do_sample for r, _ in active)
         bb = self._bucket(len(active))
-        b = self._decode_bufs.get(bb)
-        if b is None:
-            mp = self.max_pages_per_seq
-            b = self._decode_bufs[bb] = {
-                "ids": np.zeros((bb, 1), np.int32),
-                "positions": np.zeros((bb, 1), np.int32),
-                "pt": np.full((bb, mp), SCRATCH_PAGE, np.int32),
-                "cl": np.ones(bb, np.int32),     # 1, not 0: keeps
-                "slot_map": np.zeros((bb, 1), np.int32),  # softmax
-                "last_idx": np.zeros(bb, np.int32),       # finite
-                "do_sample": np.zeros(bb, np.bool_),
-                "temperature": np.ones(bb, np.float32),
-                "top_k": np.zeros(bb, np.int32),
-                "top_p": np.ones(bb, np.float32),
-                "seeds": np.zeros(bb, np.int32),
-                "steps": np.zeros(bb, np.int32),
-            }
-        n = len(active)
-        b["ids"][n:] = 0
-        b["positions"][n:] = 0
-        b["pt"][n:] = SCRATCH_PAGE
-        b["cl"][n:] = 1
-        b["slot_map"][n:] = 0
-        b["do_sample"][n:] = False
-        b["temperature"][n:] = 1.0
-        b["top_k"][n:] = 0
-        b["top_p"][n:] = 1.0
-        b["seeds"][n:] = 0
-        b["steps"][n:] = 0
+        sc = self._step_class(bb, 1, sample_capable)
+        b = sc.host
+        sc.pad(len(active))
         for i, (r, slot) in enumerate(active):
             hist_len = r.prompt.size + len(r.out_tokens)
             b["ids"][i, 0] = r.out_tokens[-1]
@@ -389,13 +460,42 @@ class ServingEngine:
                                               self.max_pages_per_seq)
             b["cl"][i] = hist_len
             b["slot_map"][i, 0] = slot
-            b["do_sample"][i] = r.do_sample
-            b["temperature"][i] = r.temperature
-            b["top_k"][i] = r.top_k
-            b["top_p"][i] = r.top_p
-            b["seeds"][i] = r.device_seed
-            b["steps"][i] = len(r.out_tokens)
-        return b
+            self._stage_sampling(b, i, r)
+        toks, lps = self._run(sc, self._step_body(sample_capable),
+                              {r.req_id: i for i, (r, _) in
+                               enumerate(active)})
+        self.metrics.decode_steps.inc()
+        self.metrics.batch_size.record(len(active))
+        for i, (r, _) in enumerate(active):
+            self._emit_token(r, int(toks[i]), events,
+                             logprob=float(lps[i]))
+
+    def _step_class(self, bsz, seq, sample_capable):
+        """The bucketed step's :class:`_StepClass` of shape ``[bsz,
+        seq]``."""
+        mp = self.max_pages_per_seq
+        return self._class(
+            ("step", (bsz, seq), bool(sample_capable)),
+            {"ids": (bsz, seq), "positions": (bsz, seq),
+             "slot_map": (bsz, seq), "pt": (bsz, mp), "cl": (bsz,),
+             "last_idx": (bsz,), **{n: (bsz,) for n in _SAMPLING}})
+
+    def _class(self, key, shapes):
+        sc = self._classes.get(key)
+        if sc is None:
+            sc = self._classes[key] = _StepClass(key, shapes, self._graphs)
+        return sc
+
+    @staticmethod
+    def _stage_sampling(b, i, req):
+        """Lane or token ``i``'s sampling parameters: the request's, with
+        its token index as the noise counter."""
+        b["do_sample"][i] = req.do_sample
+        b["temperature"][i] = req.temperature
+        b["top_k"][i] = req.top_k
+        b["top_p"][i] = req.top_p
+        b["seeds"][i] = req.device_seed
+        b["steps"][i] = len(req.out_tokens)
 
     def _prefill_chunk(self, req, start, end, events):
         if not self.cache.has_seq(req.seq_id):
@@ -404,34 +504,31 @@ class ServingEngine:
         n = int(chunk.size)
         slots = self._alloc_with_preemption(req, n)
         c = self.scheduler.prefill_chunk
-        ids = np.zeros((1, c), np.int32)
-        ids[0, :n] = chunk
-        positions = (start + np.arange(c, dtype=np.int32))[None, :]
-        pt = self.cache.page_table(req.seq_id,
-                                   self.max_pages_per_seq)[None, :]
-        cl = np.asarray([start + n], np.int32)
-        slot_map = np.zeros((1, c), np.int32)  # padding -> scratch slots
-        slot_map[0, :n] = slots
-        last_idx = np.asarray([n - 1], np.int32)
-        samp = (np.asarray([req.do_sample], np.bool_),
-                np.asarray([req.temperature], np.float32),
-                np.asarray([req.top_k], np.int32),
-                np.asarray([req.top_p], np.float32),
-                np.asarray([req.device_seed], np.int32),
-                np.asarray([len(req.out_tokens)], np.int32))
-        toks, lps = self._run_step(ids, positions, pt, cl, slot_map,
-                                   last_idx, samp, req.do_sample)
+        sc = self._step_class(1, c, req.do_sample)
+        b = sc.host
+        sc.pad()  # padding tokens write the scratch slot
+        b["ids"][0, :n] = chunk
+        b["positions"][0] = start + np.arange(c, dtype=np.int32)
+        b["pt"][0] = self.cache.page_table(req.seq_id,
+                                           self.max_pages_per_seq)
+        b["cl"][0] = start + n
+        b["slot_map"][0, :n] = slots
+        b["last_idx"][0] = n - 1
+        self._stage_sampling(b, 0, req)
+        toks, lps = self._run(sc, self._step_body(req.do_sample),
+                              {req.req_id: 0})
         self.metrics.prefill_chunks.inc()
         self.scheduler.prefill_advanced(req, end)
         if req.state != RequestState.RUNNING:
             return  # more chunks to go
-        self._prefill_finish(req, events, int(toks[0]), float(lps[0]))
+        self._prefill_finish(req, events, int(toks[0]), float(lps[0]), 0)
 
-    def _prefill_finish(self, req, events, tok, lp):
-        """Prefill-completion tail. Fork BEFORE emitting (children share
-        the prefix pages; the parent may finish — and free — at once). A
-        RECOMPUTE prefill (out_tokens non-empty after preemption) must
-        NOT fork again: the children already exist."""
+    def _prefill_finish(self, req, events, tok, lp, row):
+        """Prefill-completion tail (``row`` is the request's last-token
+        row of the dispatch's logits). Fork BEFORE emitting (children
+        share the prefix pages; the parent may finish — and free — at
+        once). A RECOMPUTE prefill (out_tokens non-empty after
+        preemption) must NOT fork again: the children already exist."""
         children = []
         if req.n > 1 and not req.out_tokens:
             for i in range(1, req.n):
@@ -439,11 +536,115 @@ class ServingEngine:
         self._emit_token(req, tok, events, logprob=lp)
         if children:
             # one logits row, several seeds: each child samples its
-            # first token with its own (seed, step) noise
-            row = self._logits_dev[0]
+            # first token with its own (seed, step) noise, before any
+            # other dispatch reuses the row's buffer
+            logits = self._logits_dev[row]
             for child in children:
-                ctok, clp = _sample_row(row, child)
+                self._rows[child.req_id] = row
+                ctok, clp = _sample_row(logits, child)
                 self._emit_token(child, ctok, events, logprob=clp)
+
+    # -- the unified ragged step -------------------------------------------
+    def _ragged_step(self, out, events):
+        """ONE token-packed dispatch for the whole step: the plain decode
+        lanes (q=1) and the prefill chunk ride a single program over K5's
+        token-packed lane layout — one dispatch and one ``[T]`` + ``[T]``
+        host fetch a step. Each token's noise is keyed on its request's
+        ``(seed, token index)``, as in the bucketed step, so the streams
+        are the bucketed step's token for token even where preemption
+        order differs."""
+        mp = self.max_pages_per_seq
+        # 1. plain decode allocation
+        plain_alloc = []
+        for r in out.decode:
+            if r.state != RequestState.RUNNING:
+                continue  # preempted by an earlier member's allocation
+            slots = self._alloc_with_preemption(r, 1)
+            plain_alloc.append((r, int(slots[0])))
+        # 2. prefill-chunk allocation (it may preempt a staged decode
+        # lane; the re-filter below drops that lane — its pages are
+        # gone, and the recompute replays an identical stream)
+        pf = None
+        if out.prefill is not None:
+            req, start, end = out.prefill
+            if req.state == RequestState.PREFILLING:
+                if not self.cache.has_seq(req.seq_id):
+                    self.cache.alloc_seq(req.seq_id)
+                chunk = req.token_history()[start:end]
+                n = int(chunk.size)
+                pslots = self._alloc_with_preemption(req, n)
+                if req.state == RequestState.PREFILLING:
+                    pf = (req, start, end, chunk, n, pslots)
+        # 3. re-filter: every lane must still be live AFTER all
+        # allocations — a preempted lane's page-table row is dead
+        plain_active = [(r, s) for r, s in plain_alloc
+                        if r.state == RequestState.RUNNING]
+        if not plain_active and pf is None:
+            return
+        # 4. pack the token batch at one of the two capacities, into
+        # that capacity's persistent buffers, reset in full: the lanes'
+        # composition changes every step
+        n_tok = len(plain_active) + (pf[4] if pf is not None else 0)
+        tcap = (self._ragged_tok_small if n_tok <= self._ragged_tok_small
+                else self._ragged_tok_mixed)
+        nl = self._ragged_lanes
+        sc = self._class(
+            ("ragged", tcap),
+            {"ids": (1, tcap), "positions": (1, tcap),
+             "slot_map": (1, tcap), "pt": (nl, mp), "cl": (nl,),
+             "ql": (nl,), "qoff": (nl,), **{n: (tcap,) for n in _SAMPLING}})
+        b = sc.host
+        sc.pad()
+        rows = {}
+        lane = off = 0
+        for r, slot in plain_active:
+            hist_len = r.prompt.size + len(r.out_tokens)
+            b["pt"][lane] = self.cache.page_table(r.seq_id, mp)
+            b["cl"][lane] = hist_len
+            b["ql"][lane] = 1
+            b["qoff"][lane] = hist_len - 1
+            b["ids"][0, off] = r.out_tokens[-1]
+            b["positions"][0, off] = hist_len - 1
+            b["slot_map"][0, off] = slot
+            self._stage_sampling(b, off, r)
+            rows[r.req_id] = off
+            lane += 1
+            off += 1
+        if pf is not None:
+            req, start, end, chunk, n, pslots = pf
+            b["pt"][lane] = self.cache.page_table(req.seq_id, mp)
+            b["cl"][lane] = start + n
+            b["ql"][lane] = n
+            b["qoff"][lane] = start
+            b["ids"][0, off:off + n] = chunk
+            b["positions"][0, off:off + n] = start + np.arange(
+                n, dtype=np.int32)
+            b["slot_map"][0, off:off + n] = pslots
+            # only the chunk's LAST token's sample is ever consumed (at
+            # prefill completion); earlier tokens keep the neutral
+            # parameters and their greedy output is discarded
+            rows[req.req_id] = off + n - 1
+            self._stage_sampling(b, off + n - 1, req)
+        # 5. ONE dispatch, ONE [T] + [T] host fetch
+        toks, lps = self._run(sc, self._ragged_body, rows)
+        if plain_active:
+            self.metrics.decode_steps.inc()
+            self.metrics.batch_size.record(len(plain_active))
+        if pf is not None:
+            self.metrics.prefill_chunks.inc()
+        # 6. events in the bucketed order: decode lanes, then the
+        # prefill completion
+        for r, _ in plain_active:
+            row = rows[r.req_id]
+            self._emit_token(r, int(toks[row]), events,
+                             logprob=float(lps[row]))
+        if pf is not None:
+            req, start, end = pf[:3]
+            self.scheduler.prefill_advanced(req, end)
+            if req.state == RequestState.RUNNING:
+                row = rows[req.req_id]
+                self._prefill_finish(req, events, int(toks[row]),
+                                     float(lps[row]), row)
 
     def _fork(self, parent, i):
         child = Request(prompt=parent.prompt,
@@ -499,27 +700,49 @@ class ServingEngine:
         if self.on_event is not None:
             self.on_event(ev)
 
-    def _run_step(self, ids, positions, pt, cl, slot_map, last_idx,
-                  samp, sample_capable):
-        """One forward + sampling on the device from host numpy arrays;
-        returns the ``[B]`` token ids and logprobs as numpy."""
-        dev = self.device
+    def _step_body(self, sample_capable):
+        def body(x):
+            return _paged_step_body(self.model, self._core, self.cache,
+                                    self.window, x, sample_capable)
+        return body
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    def _ragged_body(self, x):
+        return _ragged_step_body(self.model, self._core, self.cache,
+                                 self.window, x)
 
-        tok, lp, logits = _paged_step_body(
-            self.model, self._core, self.cache, self.window, put(ids),
-            put(positions), put(pt), put(cl), put(slot_map),
-            put(last_idx), tuple(put(a) for a in samp),
-            bool(sample_capable))
+    def _run(self, sc, body, rows):
+        """One dispatch of program class ``sc`` on the inputs staged in
+        ``sc.host`` — on the card a replay of the class's CUDA graph
+        (captured here at its first use), on the CPU the eager body —
+        and one fetch of its tokens and logprobs. ``rows`` maps each
+        request of the dispatch to its row of the outputs."""
+        if not self._graphs:
+            out, logits = sc.run_eager(body)
+        else:
+            if sc.graph is None:
+                sc.capture(body, self.device, self._graph_pool)
+                self.metrics.graphs_captured.inc()
+            out, logits = sc.replay()
+            self.metrics.graph_replays.inc()
         self._logits_dev = logits
-        self.metrics.step_dispatches.inc()
-        toks = tok.cpu().numpy()
-        lps = lp.cpu().numpy()
-        self.metrics.fetch_bytes.inc(toks.nbytes + lps.nbytes)
+        self._rows = rows
+        self._count_dispatch(sc.key)
+        host = out.cpu().numpy()             # [2, N] int32: ONE fetch
+        self.metrics.fetch_bytes.inc(host.nbytes)
         self.metrics.step_fetches.inc()
-        return toks, lps
+        return host[0], host[1].view(np.float32)
+
+    def _count_dispatch(self, key):
+        """Account one device dispatch and its program class (``key``,
+        the static shape signature that keys the step's CUDA graphs).
+        ``step_program_classes`` is the gauge the ragged path bounds at
+        <= 2; the bucketed path grows one class per decode bucket (and
+        sampler variant) plus the prefill shapes."""
+        self.metrics.step_dispatches.inc()
+        if key not in self._program_classes:
+            self._program_classes.add(key)
+            self.metrics.step_program_classes.set(
+                len(self._program_classes))
 
 
 def _sample_row(logits_row, req):
@@ -539,14 +762,22 @@ def _sample_row(logits_row, req):
 
 
 def _paged_forward(core, cache, window, ids, positions, pt, cl,
-                   slot_map):
+                   slot_map, ragged=None):
     """The transformer trunk over the paged cache: embed, attend (the
     step's K/V written into the page pool first), final norm. ids,
     positions and slot_map are ``[B, S]``, pt ``[B, P]``, cl ``[B]``,
-    all int32 on the cache's device. Returns the hidden states
-    ``[B, S, H]``."""
+    all int32 on the cache's device. With ``ragged=(ql, qoff)`` the
+    tokens are ``[1, T]`` packed lane-major and pt, cl, ql, qoff are the
+    ``[L, P]`` / ``[L]`` per-lane arrays. K5's plan (each token's lane
+    and position, and the tile form's plan) is built once, before the
+    layer loop. Returns the hidden states ``[B, S, H]``."""
     b, s = ids.shape
     slots = slot_map.reshape(-1).long()
+    if ragged is None:
+        plan = paged_plan(positions[:, 0], s)
+    else:
+        at = core.layers[0].self_attn
+        plan = ragged_plan(*ragged, s, at.num_heads // at.num_kv_heads)
     x = core.embed_tokens(ids)
     for i, layer in enumerate(core.layers):
         at = layer.self_attn
@@ -562,22 +793,47 @@ def _paged_forward(core, cache, window, ids, positions, pt, cl,
         cache.write(i, slots, k.reshape(b * s, nkv, hd),
                     v.reshape(b * s, nkv, hd))
         kp, vp = cache.operands(i)
-        out = paged_attention(q, kp, vp, pt, cl, positions[:, 0],
-                              scale=1.0 / (hd ** 0.5), window=window)
+        out = planned_attention(q.reshape(b * s, nh, hd), kp, vp, pt, cl,
+                                plan, scale=1.0 / (hd ** 0.5),
+                                window=window)
         h = x + at.o_proj(out.reshape(b, s, nh * hd))
         x = h + layer.mlp(layer.post_attention_layernorm(h))
     return core.norm(x)
 
 
-def _paged_step_body(model, core, cache, window, ids, positions, pt, cl,
-                     slot_map, last_idx, samp, sample_capable):
-    """Forward, the last real token's logits per lane, fused sampling.
-    Returns ``(tokens [B], logprobs [B], logits [B, V] float32)``."""
-    x = _paged_forward(core, cache, window, ids, positions, pt, cl,
-                       slot_map)
-    b = ids.shape[0]
-    h_last = x[torch.arange(b, device=x.device), last_idx.long()]
+def _fetched(tokens, logprobs):
+    """Tokens and logprobs as one ``[2, N]`` int32 tensor (the logprobs'
+    float32 bits), so the host fetches them in one copy."""
+    return torch.stack([tokens, logprobs.view(torch.int32)])
+
+
+def _paged_step_body(model, core, cache, window, x, sample_capable):
+    """The bucketed step on its inputs ``x`` (name -> tensor): forward,
+    the last real token's logits per lane, fused sampling. Returns
+    ``([2, B] tokens and logprob bits, logits [B, V] float32)``."""
+    h = _paged_forward(core, cache, window, x["ids"], x["positions"],
+                       x["pt"], x["cl"], x["slot_map"])
+    b = h.shape[0]
+    h_last = h[torch.arange(b, device=h.device), x["last_idx"].long()]
     logits = model.lm_head(h_last).float()
-    tokens, logprobs = fused_sample(logits, *samp,
+    tokens, logprobs = fused_sample(logits, *(x[n] for n in _SAMPLING),
                                     sample_capable=sample_capable)
-    return tokens, logprobs, logits
+    return _fetched(tokens, logprobs), logits
+
+
+def _ragged_step_body(model, core, cache, window, x):
+    """The token-packed unified step: the trunk runs at ``[1, T]`` with
+    ``ragged=(ql, qoff)``, the head and fused sampling cover EVERY
+    packed token, each with its own ``(seed, step)`` (a prefill chunk's
+    non-final tokens carry neutral parameters; their samples are
+    discarded). Always sample-capable: greedy tokens take
+    ``fused_sample``'s argmax / raw-logprob branch, so greedy and sampled
+    steps share one class. Returns ``([2, T] tokens and logprob bits,
+    logits [T, V] float32)``."""
+    h = _paged_forward(core, cache, window, x["ids"], x["positions"],
+                       x["pt"], x["cl"], x["slot_map"],
+                       ragged=(x["ql"], x["qoff"]))
+    logits = model.lm_head(h[0]).float()
+    tokens, logprobs = fused_sample(logits, *(x[n] for n in _SAMPLING),
+                                    sample_capable=True)
+    return _fetched(tokens, logprobs), logits

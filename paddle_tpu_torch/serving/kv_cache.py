@@ -18,7 +18,8 @@ Unlike the JAX package, which threads the pools through its compiled
 step functionally, :meth:`PagedKVCache.write` scatters a step's K/V into
 the pools IN PLACE (``index_copy_`` on the flattened ``[NP*PS, KV, D]``
 view), on the current stream, so the attention kernel launched after it
-on the same stream reads the new keys.
+on the same stream reads the new keys. The pools are allocated once and
+never replaced: the engine's CUDA graphs hold their addresses.
 
 Not ported yet: the radix-tree prefix cache, the host/disk tiers, page
 export/import and the tensor-parallel geometry.

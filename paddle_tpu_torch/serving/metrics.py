@@ -82,6 +82,9 @@ class ServingMetrics:
         self.fetch_bytes = Counter()          # host<-device bytes
         self.step_dispatches = Counter()      # model forwards issued
         self.step_fetches = Counter()         # host<-device fetches
+        self.step_program_classes = Gauge()   # distinct step shape classes
+        self.graphs_captured = Counter()      # CUDA graphs captured
+        self.graph_replays = Counter()        # CUDA graph replays
         self.queue_depth_gauge = Gauge()
         self.page_occupancy_gauge = Gauge()
         self.running_gauge = Gauge()          # running decode batch size

@@ -8,34 +8,54 @@ filtered distribution and always keeps at least the most probable token.
 
 Categorical sampling is Gumbel-max over the filtered,
 temperature-scaled logits, and a greedy lane is the same argmax with no
-noise. The noise of lane ``i`` comes from a ``torch.Generator`` seeded
-with ``(seeds[i], steps[i])``, where ``step`` is the request's token
-index, so token ``t`` of a request is a pure function of ``(weights,
-history, seed, t)`` and a preempted request recomputes the same stream.
-PyTorch cannot reproduce JAX's threefry bits, and its CPU and CUDA
-generators differ too: a sampled stream is reproducible within the port
-on one device type only. Greedy lanes match the JAX package token for
-token.
+noise. The noise is counter-keyed, computed on the device with tensor
+ops and no host read (so the step can run as a CUDA graph): the noise of
+vocabulary entry ``v`` of a lane is a pure function of ``(seed, step,
+v)`` (:func:`lane_noise`), where ``step`` is the request's token index.
+Token ``t`` of a request is therefore a pure function of ``(weights,
+history, seed, t)``, whatever lane or batch it rides in: a preempted
+request recomputes the same stream, and the ragged and bucketed steps
+draw the same one. PyTorch cannot reproduce JAX's threefry bits, so a
+sampled stream is reproducible within the port only. Greedy lanes match
+the JAX package token for token.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_sample"]
+from ..ops.fa_kernel import _mul32
+
+__all__ = ["fused_sample", "lane_noise"]
+
+_M32 = 0xFFFFFFFF
 
 
-def _lane_noise(seeds, steps, vocab, device):
-    """Standard Gumbel noise ``[B, V]``, one generator per lane keyed on
-    ``(seed, step)``."""
-    rows = []
-    for seed, step in zip(seeds.tolist(), steps.tolist()):
-        g = torch.Generator(device=device)
-        g.manual_seed(((int(seed) & 0x7FFFFFFF) << 32)
-                      | (int(step) & 0xFFFFFFFF))
-        u = torch.rand(vocab, generator=g, device=device)
-        u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-        rows.append(-torch.log(-torch.log(u)))
-    return torch.stack(rows)
+def _fmix32(x):
+    """murmur3's 32-bit finaliser on int64 ``x`` in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def lane_noise(seeds, steps, vocab):
+    """Standard Gumbel noise ``[B, V]`` float32 on ``seeds``' device. Lane
+    ``i``'s key is ``fmix32(fmix32(seed * 0x9E3779B1) ^ step *
+    0x85EBCA77)``; entry ``v`` hashes ``key ^ v * 0xC2B2AE3D`` with two
+    rounds of fmix32 (the counter hash of ``ops/fa_kernel.keep_scale``),
+    takes the top 24 bits as a uniform ``u = (bits + 0.5) / 2**24`` in
+    (0, 1), and returns ``-log(-log(u))``. Each row depends on its own
+    ``(seed, step)`` alone."""
+    seed = seeds.to(torch.int64) & _M32
+    step = steps.to(torch.int64) & _M32
+    key = _fmix32(_fmix32(_mul32(seed, 0x9E3779B1)) ^ _mul32(step,
+                                                             0x85EBCA77))
+    col = _mul32(torch.arange(vocab, dtype=torch.int64,
+                              device=seeds.device), 0xC2B2AE3D)
+    x = _fmix32(_fmix32(key[:, None] ^ col[None, :]))
+    u = ((x >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+    return -torch.log(-torch.log(u))
 
 
 def _filter_top_k(scaled, top_k):
@@ -88,7 +108,7 @@ def fused_sample(logits, do_sample, temperature, top_k, top_p, seeds,
     filtered = torch.where(keep, scaled, neg_inf)
     keep = keep & _filter_top_p(filtered, top_p)
     final = torch.where(keep, scaled, neg_inf)
-    gumbel = _lane_noise(seeds, steps, lg.shape[1], lg.device)
+    gumbel = lane_noise(seeds, steps, lg.shape[1])
     sampled = torch.argmax(final + gumbel, dim=-1)
     tok = torch.where(do_sample, sampled, greedy)
     dist = torch.where(do_sample[:, None], final, lg)

@@ -7,8 +7,14 @@ Times each kernel at Mistral-7B's training shape (B 2, S 8192, 32 query
 heads over 8 kv heads, head_dim 128, bf16, causal) under the two band
 forms its training paths give it: the 4096-token window, and packed
 documents of 128-4096 tokens folded into the window. The two builds run
-in the order shipped, variant, variant, shipped, and must give the same
-bits. Prints one line per reading and, last, a JSON object of them all.
+in the order shipped, variant, variant, shipped. Their bits differ by
+rounding alone: an interior tile fuses s * scale * log2(e) - m into one
+FMA where a masked tile rounds the product first. So they are held to
+each other at ``tools/k6_ab.py``'s tolerance (out and lse as there; dq,
+dk and dv at ``tools/k2_k3_ab.py``'s, which ``k6_ab`` builds on), and
+the largest difference of each output is printed beside its ratio to
+the limit. Prints one line per reading and, last, a JSON object of them
+all.
 
     python -m paddle_tpu_torch.tools.fa_interior_ab [--iters N]
 """
@@ -18,6 +24,9 @@ import argparse
 import json
 import subprocess
 import sys
+
+from paddle_tpu_torch.tools.k2_k3_ab import ratio
+from paddle_tpu_torch.tools.k6_ab import LSE_TOL, lse_err, out_sigma, ratios
 
 # tile_flags's `clear` starts true only when the tile could be interior;
 # the variant starts it false, so __syncthreads_and never says interior
@@ -96,6 +105,20 @@ def time_kernels(FK, q, k, v, do, fm, iters):
     return t, (out, lse, dq, dk, dv)
 
 
+def agreement(shipped, variant, q, k, v, fm):
+    """{output: (ratio to the limit, largest |variant - shipped|)} of the
+    two builds' (out, lse, dq, dk, dv); within tolerance at ratio <= 1."""
+    res = {"out": (ratios(variant[0], shipped[0],
+                          out_sigma(q, k, v, dict(causal=True, fm=fm)))[0],
+                   (variant[0].float() - shipped[0].float()).abs().max()
+                   .item())}
+    e = lse_err(variant[1], shipped[1])
+    res["lse"] = (e / LSE_TOL, e)
+    for name, a, b in zip(("dq", "dk", "dv"), variant[2:], shipped[2:]):
+        res[name] = (ratio(a, b), (a.float() - b.float()).abs().max().item())
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
@@ -136,19 +159,24 @@ def main(argv=None):
                 outs[which] = o
                 print(f"{name}: {which}: " + ", ".join(
                     f"{n} {x:.4f} ms" for n, x in t.items()), flush=True)
-            same = all(torch.equal(a, b) for a, b in
-                       zip(outs["shipped"], outs["no interior"]))
-            if not same:
-                raise AssertionError(f"{name}: the builds disagree")
+            agree = agreement(outs["shipped"], outs["no interior"], q, k, v,
+                              fm)
+            print(f"{name}: no interior against shipped: " + ", ".join(
+                f"{n} {r:.3f} of the limit (largest difference {d:.3e})"
+                for n, (r, d) in agree.items()), flush=True)
+            if max(r for r, _ in agree.values()) > 1.0:
+                raise AssertionError(f"{name}: the builds disagree past "
+                                     "k6_ab's tolerance")
             mean = {w: {n: sum(r["ms"][n] for r in runs if r["build"] == w)
                         / 2 for n in ("K6", "K2", "K3")}
                     for w in ("shipped", "no interior")}
             print(f"{name}: mean of two runs each, shipped / no interior: "
                   + ", ".join(f"{n} {mean['shipped'][n]:.4f} / "
                               f"{mean['no interior'][n]:.4f} ms"
-                              for n in ("K6", "K2", "K3"))
-                  + "; outputs bit-identical", flush=True)
-            res[name] = dict(runs=runs, mean=mean)
+                              for n in ("K6", "K2", "K3")), flush=True)
+            res[name] = dict(runs=runs, mean=mean, agreement={
+                n: dict(ratio=r, max_abs_diff=d)
+                for n, (r, d) in agree.items()})
     finally:
         FK.KERNEL_LIBRARY = shipped
     print(smi)

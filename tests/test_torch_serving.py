@@ -1,7 +1,10 @@
 """paddle_tpu_torch's serving slice against paddle_tpu on the CPU: the
 page allocator's invariants (mirroring tests/test_serving.py::
 TestPagedKVCache), the in-place K/V scatter, fused sampling against the
-JAX filter masks, and the engine end to end — the JAX ServingEngine and
+JAX filter masks, its counter-keyed noise (a lane's noise its own
+(seed, step)'s whatever the batch, sampled frequencies within 3 sigma of
+the filtered softmax over 4000 seeds, no host read), and the engine end
+to end — the JAX ServingEngine and
 the port's on the same transplanted tiny model, greedy tokens equal token
 for token through a preemption, first-token logits within 1e-4 (two
 frameworks' float32 matmuls sum in different orders).
@@ -273,6 +276,58 @@ def test_sampled_lanes_stay_in_the_filter_and_replay():
     assert torch.equal(tok, tok2)  # keyed on (seed, step): replays
 
 
+def test_lane_noise_ignores_lane_order_and_batch_size():
+    """Lane i's noise is a function of its own (seed, step): the same
+    row in any order, in a batch of any size, and alone."""
+    seeds = torch.tensor([5, 0, 2 ** 31 - 1, 5, 77], dtype=torch.int32)
+    steps = torch.tensor([0, 3, 9, 1, 0], dtype=torch.int32)
+    full = TS.lane_noise(seeds, steps, 40)
+    perm = torch.tensor([3, 0, 4, 2, 1])
+    assert torch.equal(TS.lane_noise(seeds[perm], steps[perm], 40),
+                       full[perm])
+    for i in range(5):
+        assert torch.equal(TS.lane_noise(seeds[i:i + 1], steps[i:i + 1],
+                                         40)[0], full[i])
+    assert not torch.equal(full[0], full[3])  # the step moves the noise
+    assert torch.isfinite(full).all()
+
+
+def test_sampled_frequencies_match_the_filtered_softmax():
+    """Over 4000 seeds, each token's frequency is within 3 sigma of its
+    probability under the filtered, temperature-scaled softmax."""
+    n, v = 4000, 8
+    lg = torch.tensor([[2.0, 1.5, 1.0, 0.5, 0.0, -0.5, -1.0, -3.0]])
+    temp, top_k = 0.8, 5
+    tok, _ = TS.fused_sample(
+        lg.expand(n, v), torch.ones(n, dtype=torch.bool),
+        torch.full((n,), temp), torch.full((n,), top_k, dtype=torch.int32),
+        torch.ones(n), torch.arange(n, dtype=torch.int32),
+        torch.full((n,), 3, dtype=torch.int32))
+    p = torch.softmax(lg[0, :top_k] / temp, dim=0).double()
+    freq = torch.bincount(tok.long(), minlength=v).double() / n
+    assert (freq[top_k:] == 0).all()
+    sigma = (p * (1 - p) / n).sqrt()
+    assert ((freq[:top_k] - p).abs() <= 3 * sigma).all(), (freq, p)
+
+
+def test_fused_sample_reads_nothing_on_the_host(monkeypatch):
+    lg = torch.from_numpy(_logits_with_ties())
+    b = lg.shape[0]
+    samp = (torch.tensor([True, False, True, True]), torch.full((b,), 0.7),
+            torch.full((b,), 3, dtype=torch.int32), torch.full((b,), 0.9),
+            torch.arange(b, dtype=torch.int32),
+            torch.arange(b, dtype=torch.int32))
+
+    def no_host_read(*a, **k):
+        raise AssertionError("fused_sample read a tensor on the host")
+
+    monkeypatch.setattr(torch.Tensor, "tolist", no_host_read)
+    monkeypatch.setattr(torch.Tensor, "item", no_host_read)
+    for capable in (True, False):
+        tok, lp = TS.fused_sample(lg, *samp, sample_capable=capable)
+        assert tok.shape == lp.shape == (b,)
+
+
 # ---------------------------------------------------------------------------
 # the engine end to end against the JAX engine
 
@@ -377,8 +432,7 @@ def test_engine_sampling_forks_and_cancel():
     dict(prefix_cache=True), dict(draft_model=object()),
     dict(speculative_k=2), dict(weight_quant="int8"),
     dict(chaos=object()), dict(host_pool=object()),
-    dict(distill=object()), dict(ragged=True), dict(mesh=object()),
-    dict(tp_degree=2)])
+    dict(distill=object()), dict(mesh=object()), dict(tp_degree=2)])
 def test_unported_engine_arguments_raise(arg):
     _, tm = _transplanted()
     with pytest.raises(NotImplementedError):
