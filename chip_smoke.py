@@ -18,8 +18,12 @@ Phases, each of which passes or ends the script with a non-zero code:
    arms it takes (K5 also at the split form's boundaries, through both
    its entries, rows with no live key exactly 0), with the stated
    tolerance (flash attention element by element; K5 2e-2 of the element
-   plus 2e-2; planted faults must fail the same comparison; AdamW's bf16
-   params exactly their masters rounded); its time beside the plain
+   plus 2e-2; planted faults must fail the same comparison; K4's params,
+   masters and moments equal to the plain version's, bare and in its
+   arms: the global-norm clip factor read from device memory, L1,
+   float32 grads under bf16 params, each of which a K4 without it must
+   fail, as must one with the factor 10 % high or the clipped bf16 grad
+   not rounded); its time beside the plain
    version's, one PyTorch library call's (a yardstick the port never
    calls) and the card's bound (K5 at LLaMA-2-7B's and Mistral's GQA
    32:8 decode and prefill shapes and at the ragged phase's mixed step,
@@ -79,7 +83,24 @@ Phases, each of which passes or ends the script with a non-zero code:
 10. ``gpt_path``: 2 GPT layers at batch 8 x 2048 through the kernels and
    through the plain versions, dropout on and the same seeds: the
    losses must agree.
-11. ``serve``: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
+11. ``fit``: ``Model.fit`` over ``LlamaForCausalLM(LlamaConfig.
+   llama2_7b(num_hidden_layers=20, recompute=True,
+   fuse_linear_cross_entropy=True))`` built in float32 and passed through
+   ``amp.decorate(level="O2")``, with ``prepare(amp_configs=O2)``,
+   LLaMA-2's AdamW (beta 0.9/0.95, eps 1e-5, weight decay 0.1,
+   ``ClipGradByGlobalNorm(1.0)``, ``LinearWarmup(CosineAnnealingDecay)``
+   warming up over 3 steps to 3e-4 and decaying towards 3e-5) and a
+   ``DataLoader(TensorDataset)`` of random rows, batch 4 x 2048, 10
+   steps: K1 = 2 x 20 x steps (forward and recompute), K2 = K3 = 20 x
+   steps, K4 = steps, no plain call; the learning rates the schedule's,
+   the clip factor below 1 on the first 3 steps, the losses finite,
+   starting near ln V + s2/2 and falling; tokens/s, step p50, MFU (the
+   model's FLOPs only) and peak memory. Then 2 layers at hidden 1024
+   (``master_grad``, ``L1Decay``): 3 steps, ``Model.save``, a fresh
+   ``Model.load``, 3 more equal 6 uninterrupted steps bit for bit; and
+   2 layers at full width, LLaMA (recompute full and core_attn) and GPT
+   (dropout 0.1): losses and every gradient bit-equal to recompute off.
+12. ``serve``: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
    llama2_7b(dtype="bfloat16", use_flash_attention=False))`` at full
    width and depth, random weights from a seed, the bucketed step, every
    step class a CUDA graph (captured in a warm-up of 16 requests that
@@ -94,7 +115,7 @@ Phases, each of which passes or ends the script with a non-zero code:
    forced, each of its tokens the dense argmax wherever the dense top-2
    margin exceeds 0.5. A profile of 3 decode steps gives the step's
    wall, device busy time and kernels.
-12. ``ragged``: the same over ``LlamaConfig.mistral_7b`` at full width
+13. ``ragged``: the same over ``LlamaConfig.mistral_7b`` at full width
    and depth (32 layers, GQA 32:8, FFN 14336, the 4096 window) with the
    unified ragged step (``ragged=True``, 9 lanes, token capacities 8 and
    264, one CUDA graph each) over a 2048-page pool, 8 requests of 48 to
@@ -1791,10 +1812,11 @@ def param_shapes(cfg):
     return [(v, h)] + layer * cfg.num_hidden_layers + [(h,), (v, h)]
 
 
-def adam_leaves(shapes, dtype, master, seed, dev="cuda", misalign=()):
+def adam_leaves(shapes, dtype, master, seed, dev="cuda", misalign=(),
+                grad_dtype=None):
     """(params, grads, states) for leaves of ``shapes``; leaf i in
     ``misalign`` lies one element past an aligned address (no 16-byte
-    vector access)."""
+    vector access); grads in ``grad_dtype`` (default: the params')."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     params, grads, states = [], [], []
@@ -1811,96 +1833,172 @@ def adam_leaves(shapes, dtype, master, seed, dev="cuda", misalign=()):
         if master:
             st["master"] = p.float()
         params.append(p)
-        grads.append(rnd(dt=dtype))
+        grads.append(rnd(dt=grad_dtype or dtype))
         states.append(st)
     return params, grads, states
 
 
-def adam_param_fault(params, states, want):
-    """Why K4's params are wrong, or None. A bf16 param with an f32
-    master must be that master rounded to bf16, exactly, and within one
-    bf16 ulp of the plain version's master; an f32 param (its own
-    master) within F32_TOL of the plain version's."""
+def adam_mismatch(got, want):
+    """Where K4's leaves differ from the plain version's, or None: every
+    param, master and moment must be EQUAL (K4 rounds each operation as
+    the plain version's PyTorch ops do)."""
     import torch
-    for i, (p, st, wp, wst) in enumerate(zip(params, states, want[0],
+    for i, (p, st, wp, wst) in enumerate(zip(got[0], got[2], want[0],
                                              want[2])):
-        if "master" in st:
-            if not torch.equal(p, st["master"].to(p.dtype)):
-                return f"leaf {i} is not its master rounded to {p.dtype}"
-            ref = wst["master"].to(p.dtype).float()
-            _, e = torch.frexp(ref)        # |ref| = m 2**e, m in [0.5, 1)
-            ulp = torch.ldexp(torch.full_like(ref, torch.finfo(
-                p.dtype).eps), e - 1)
-            if not ((p.float() - ref).abs() <= ulp).all():
-                return f"leaf {i} is more than one ulp off the plain master"
-        elif not torch.allclose(p, wp, atol=F32_TOL, rtol=F32_TOL):
-            return f"leaf {i} differs from the plain version's"
+        for key, a, b in [("param", p, wp)] + [(k, st[k], wst[k])
+                                               for k in st]:
+            if not torch.equal(a, b):
+                diff = (a.float() - b.float()).abs().max().item()
+                return f"leaf {i} {key}: max |diff| {diff:.3e}"
     return None
+
+
+# K4's arms: (name, grad dtype, clip, L1 coefficient). "clip": the
+# global-norm factor of ClipGradByGlobalNorm(1.0) over the leaves' grads,
+# read by the kernel from device memory, leaf 2 with need_clip False
+K4_ARMS = (("clip", None, True, 0.0), ("l1", None, False, 1e-2),
+           ("f32_grad", "float32", False, 0.0),
+           ("clip_l1_f32_grad", "float32", True, 1e-2))
+K4_L1 = 1e-2
+
+
+def k4_arm_kwargs(grads, clip, l1, unclipped=(2,)):
+    """The arm's keyword arguments for K4 and its plain version."""
+    from paddle_tpu_torch.nn.clip_grad import ClipGradByGlobalNorm
+    if not clip:
+        return dict(l1=l1) if l1 else {}
+    mask = [i not in unclipped for i in range(len(grads))]
+    factor = ClipGradByGlobalNorm(1.0).factor(
+        [(None, g) for g, keep in zip(grads, mask) if keep])
+    return dict(l1=l1, clip=factor, clip_mask=mask)
+
+
+def k4_faults(arm, bf16_grads):
+    """K4 runs that the check must reject, each (name, arm keywords,
+    whether the grads go in as float32 copies): the arm ignored; where
+    the clip factor applies, the factor 10 % high and, for bf16 grads,
+    the clipped grad not rounded back to bf16 (float32 copies of the
+    grads take the kernel's float32 grad arm, which does not round)."""
+    if not arm:
+        return []
+    out = [("the arm ignored", {}, False)]
+    if arm.get("clip") is not None:
+        out.append(("the clip factor x 1.1",
+                    dict(arm, clip=arm["clip"] * 1.1), False))
+        if bf16_grads:
+            out.append(("the clipped grad not rounded to bf16", arm, True))
+    return out
+
+
+def k4_check(odd, dev, master, decoupled, arm_kw=None, grad_dtype=None):
+    """K4 and its plain version over leaves of odd sizes, two steps;
+    returns the share of params moved. Raises unless every param,
+    master and moment is equal to the plain version's, or if a K4 that
+    never wrote the params, ignored the arm or (in the clip arms) took
+    the factor 10 % high or did not round the clipped grad would pass."""
+    import torch
+    from paddle_tpu_torch.ops import adamw_kernel as AK
+
+    dtype = torch.bfloat16 if master else torch.float32
+
+    def leaves():
+        return adam_leaves(odd, dtype, master, seed=1, dev=dev,
+                           misalign=(1, 4), grad_dtype=grad_dtype)
+    got, want = leaves(), leaves()
+    before = [p.clone() for p in got[0]]
+    arm = arm_kw(got[1]) if arm_kw else {}
+    faults = []
+    for name, fkw, widen in k4_faults(arm, got[1][0].dtype == torch.bfloat16):
+        p, g, st = leaves()
+        faults.append((name, (p, [x.float() for x in g] if widen else g,
+                              st), fkw))
+    for step in (1, 2):
+        kw = dict(lr=1e-3 * step, step=step, wd=0.01, decoupled=decoupled,
+                  **ADAM)
+        AK.adamw_update_cuda(*got, **kw, **arm)
+        AK.adamw_update_plain(*want, **kw, **arm)
+        for _, f, fkw in faults:
+            AK.adamw_update_cuda(*f, **kw, **fkw)
+    torch.cuda.synchronize()
+    bad = adam_mismatch(got, want)
+    if bad:
+        raise AssertionError(f"K4 differs from its plain version: {bad}")
+    if not adam_mismatch((before,) + got[1:], want):
+        raise AssertionError("the K4 check passes params the kernel never "
+                             "wrote")
+    for name, f, _ in faults:
+        if not adam_mismatch(f, want):
+            raise AssertionError(f"the K4 check passes a kernel with "
+                                 f"{name} ({sorted(arm)})")
+    moved = (sum(int((p != b).sum()) for p, b in zip(got[0], before))
+             / sum(p.numel() for p in before))
+    if moved < 0.1:
+        raise AssertionError(f"K4 moved only {moved:.3f} of the params")
+    return moved, [name for name, _, _ in faults]
 
 
 def adamw_phase(cfg, dev="cuda"):
     """K4 against its plain version over leaves of odd sizes (bf16 with
-    f32 masters, f32 without; coupled and decoupled decay; two steps),
-    then timed over leaves of the training model's shapes."""
+    f32 masters, f32 without; coupled and decoupled decay; then each arm:
+    the clip factor from device memory, L1, float32 grads under bf16
+    params; two steps), then timed over leaves of the training model's
+    shapes, bare and in the arms the training paths run."""
     import torch
     from paddle_tpu_torch.ops import adamw_kernel as AK
 
     odd = [(7,), (300,), (1000,), (8193,), (3, 4101), (129, 33), (1,)]
-    worst = 0.0
     for master, decoupled in ((True, True), (True, False), (False, True),
                               (False, False)):
-        dtype = torch.bfloat16 if master else torch.float32
-        got = adam_leaves(odd, dtype, master, seed=1, dev=dev,
-                          misalign=(1, 4))
-        want = adam_leaves(odd, dtype, master, seed=1, dev=dev,
-                           misalign=(1, 4))
-        before = [p.clone() for p in got[0]]
-        for step in (1, 2):
-            kw = dict(lr=1e-3 * step, step=step, wd=0.01,
-                      decoupled=decoupled, **ADAM)
-            AK.adamw_update_cuda(*got, **kw)
-            AK.adamw_update_plain(*want, **kw)
-        torch.cuda.synchronize()
-        err = 0.0
-        for st, wst in zip(got[2], want[2]):
-            for key in st:
-                torch.testing.assert_close(st[key], wst[key], atol=F32_TOL,
-                                           rtol=F32_TOL, msg=f"K4 {key}")
-                err = max(err, (st[key] - wst[key]).abs().max().item())
-        fault = adam_param_fault(got[0], got[2], want)
-        if fault:
-            raise AssertionError(f"K4 params: {fault}")
-        # the same check must reject a K4 that never wrote the params
-        if not adam_param_fault(before, got[2], want):
-            raise AssertionError("the K4 param check passes params the "
-                                 "kernel never wrote")
-        moved = (sum(int((p != b).sum()) for p, b in zip(got[0], before))
-                 / sum(p.numel() for p in before))
-        if moved < 0.1:
-            raise AssertionError(f"K4 moved only {moved:.3f} of the params")
-        worst = max(worst, err)
+        moved, _ = k4_check(odd, dev, master, decoupled)
         print(f"kernel check ok: adamw {len(odd)} leaves of odd sizes, "
               f"{'bf16 + f32 master' if master else 'f32'}, "
               f"{'decoupled' if decoupled else 'coupled'} decay, 2 steps: "
-              f"max_abs_err f32 state {err:.3e} (tol {F32_TOL}); params "
-              + ("equal to their masters rounded to bf16, within one bf16 "
-                 "ulp of the plain masters" if master else
-                 f"within {F32_TOL}") + f"; {100 * moved:.1f} % of the "
-              "params changed; unwritten params rejected", flush=True)
+              "params, masters and moments equal to the plain version's; "
+              f"{100 * moved:.1f} % of the params changed; unwritten "
+              "params rejected", flush=True)
+    for name, gdt, clip, l1 in K4_ARMS:
+        moved, faults = k4_check(
+            odd, dev, True, True, grad_dtype=gdt and torch.float32,
+            arm_kw=lambda gs, c=clip, l=l1: k4_arm_kwargs(gs, c, l))
+        print(f"kernel check ok: adamw arm {name} (bf16 + f32 master, "
+              f"grads {gdt or 'bf16'}, clip {'on, leaf 2 unclipped' if clip
+              else 'off'}, L1 {l1}), 2 steps: params, masters and moments "
+              "equal to the plain version's; rejected: "
+              + "; ".join(["unwritten params"] + faults), flush=True)
 
     shapes = param_shapes(cfg)
     n = sum(math.prod(s) for s in shapes)
-    leaves = adam_leaves(shapes, torch.bfloat16, True, seed=2, dev=dev)
     kw = dict(lr=1e-4, step=3, wd=0.01, decoupled=True, **ADAM)
-    ms = cuda_ms(lambda: AK.adamw_update_cuda(*leaves, **kw), iters=5)
-    plain_ms = cuda_ms(lambda: AK.adamw_update_plain(*leaves, **kw),
-                       iters=1, warmup=1)
-    del leaves
-    torch.cuda.empty_cache()
+    timed = {}
+    # bare (the train phase), clip (the fit phase), clip + L1 + float32
+    # grads (the fit phase's resume run): bytes a parameter read and
+    # written, grad 2 or 4 B + master, m1, m2 in and out + bf16 param out
+    for name, gdt, clip, l1, per in (
+            ("bare", None, False, 0.0, 28),
+            ("clip", None, True, 0.0, 28),
+            ("clip_l1_f32_grad", torch.float32, True, K4_L1, 30)):
+        leaves = adam_leaves(shapes, torch.bfloat16, True, seed=2, dev=dev,
+                             grad_dtype=gdt)
+        arm = k4_arm_kwargs(leaves[1], clip, l1, unclipped=())
+        ms = cuda_ms(lambda: AK.adamw_update_cuda(*leaves, **kw, **arm),
+                     iters=5)
+        plain_ms = cuda_ms(lambda: AK.adamw_update_plain(*leaves, **kw,
+                                                         **arm),
+                           iters=1, warmup=1)
+        factor = arm.get("clip")
+        del leaves, arm
+        torch.cuda.empty_cache()
+        nbytes, flops = per * n, (15 + 3 * clip + 2 * bool(l1)) * n
+        bound_ms, bound_by = bound(nbytes, flops, peak=F32_FLOPS)
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=nbytes, flops=flops,
+                           factor=None if factor is None
+                           else factor.item())
     # the library yardstick over float32 copies of the same leaves:
     # reads p, g, m, v and writes p, m, v, 28 B a parameter, the same
     # total as K4's bf16 param + f32 master (2 + 4 + 4 + 4 read, 2 + 4 +
-    # 4 + 4 written) by another split
+    # 4 + 4 written) by another split; for the clip arms the fused
+    # AdamW's own device-memory grad divisor (grad_scale = 1 / factor)
     g = torch.Generator(device=dev).manual_seed(3)
     ps = [torch.nn.Parameter(torch.randn(s, generator=g, device=dev))
           for s in shapes]
@@ -1908,17 +2006,24 @@ def adamw_phase(cfg, dev="cuda"):
         p.grad = torch.randn(p.shape, generator=g, device=dev)
     opt = torch.optim.AdamW(ps, lr=1e-4, weight_decay=0.01, fused=True)
     library_ms = cuda_ms(opt.step, iters=3, warmup=1)
+    opt.grad_scale = torch.full((), 1 / timed["clip"]["factor"],
+                                device=dev)
+    library_clip_ms = cuda_ms(opt.step, iters=3, warmup=1)
     del ps, opt
     torch.cuda.empty_cache()
-    nbytes, flops = 28 * n, 15 * n   # ~15 float32 flops a parameter
-    bound_ms, bound_by = bound(nbytes, flops, peak=F32_FLOPS)
-    print(f"kernel time adamw: {len(shapes)} leaves, {n} params (bf16 + "
-          f"f32 master): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch AdamW(fused) f32 {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B)", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                flops=flops, max_abs_err=worst, params=n, leaves=len(shapes))
+    for name, lib in (("bare", library_ms), ("clip", library_clip_ms),
+                      ("clip_l1_f32_grad", library_clip_ms)):
+        t = timed[name]
+        t.update(library_ms=lib, max_abs_err=0.0)
+        print(f"kernel time adamw {name}: {len(shapes)} leaves, {n} params "
+              f"(bf16 + f32 master): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, torch AdamW(fused"
+              f"{'' if name == 'bare' else ', grad_scale'}) f32 "
+              f"{lib:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {t['bytes']} B)", flush=True)
+    base = timed.pop("bare")
+    return dict(base, max_abs_err=0.0, params=n, leaves=len(shapes),
+                arms=timed)
 
 
 # -- training ----------------------------------------------------------------
@@ -2467,6 +2572,308 @@ def document_phase(cfg, dev=None, lengths=(1500, 2292, 4400)):
     return docs
 
 
+# -- LLaMA pretraining as users run it: Model.fit -----------------------------
+
+# LLaMA-2's recipe (Touvron et al. 2023, sec. 2.2): AdamW beta 0.9/0.95,
+# eps 1e-5, weight decay 0.1, global-norm clip 1.0, linear warmup (2000
+# steps, cut here to FIT_WARMUP) then cosine decay to 10 % of the peak
+FIT_LAYERS, FIT_STEPS, FIT_WARMUP, FIT_PEAK_LR = 20, 10, 3, 3e-4
+FIT_EARLY = 3          # steps whose clip factor must be below 1
+RESUME_STEPS = 3       # N: N steps, save, load, N more against 2N
+RESUME_WIDTH = dict(hidden_size=1024, intermediate_size=2752,
+                    num_attention_heads=8)   # head_dim 128, as LLaMA's
+RESUME_L1 = 1e-5
+RECOMPUTE_BATCH = 2    # rows of the 2-layer recompute comparisons
+
+
+def fit_schedule(lr_mod, steps, warmup=FIT_WARMUP, peak=FIT_PEAK_LR):
+    return lr_mod.LinearWarmup(
+        lr_mod.CosineAnnealingDecay(peak, steps - warmup, eta_min=peak / 10),
+        warmup, 0.0, peak)
+
+
+def fit_setup(cfg, dev=None, *, l1=0.0, master_grad=False, seed=0):
+    """``LlamaForCausalLM(cfg)`` built in float32 from ``seed``, through
+    ``amp.decorate(O2, bf16)``; LLaMA-2's AdamW under ``hapi.Model`` with
+    ``amp_configs`` O2 (``l1``: ``weight_decay=L1Decay(l1)`` in place of
+    the decoupled 0.1)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    from paddle_tpu_torch.regularizer import L1Decay
+
+    net = amp.decorate(LlamaForCausalLM(cfg, device=dev, seed=seed),
+                       level="O2", dtype="bfloat16", master_grad=master_grad)
+    opt = AdamW(fit_schedule(lr, FIT_STEPS), beta1=0.9, beta2=0.95,
+                epsilon=1e-5, parameters=net.parameters(),
+                weight_decay=L1Decay(l1) if l1 else 0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)
+    return Model(net, inputs=["input_ids"], labels=["labels"]).prepare(
+        opt, LlamaPretrainingCriterion(cfg).bind(net),
+        amp_configs={"level": "O2", "dtype": "bfloat16"})
+
+
+def fit_rows(cfg, batch, seq, steps, seed=0):
+    """``steps`` batches of one batch of random token rows from a numpy
+    seed (the batch repeats, so the loss falls by memorisation within a
+    few steps, as in the train phase)."""
+    import numpy as np
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    return np.tile(ids, (steps, 1))
+
+
+def fit_recorder():
+    """A ``hapi`` callback that records each step's learning rate (the
+    schedule's float, read before the step), its loss (the float ``fit``
+    already fetched), the optimizer's clip factor (a device tensor, read
+    once after the loop) and the host clock at the step's end (the loss
+    fetch has waited for the step)."""
+    import torch
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            super().__init__()
+            self.lrs, self.losses, self.factors, self.ends = [], [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.lrs.append(self.model._optimizer.get_lr())
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.factors.append(self.model._optimizer._clip_factor)
+            self.ends.append(time.perf_counter())
+
+        def on_train_end(self, logs=None):
+            self.factors = torch.stack(self.factors).tolist()
+    return Recorder()
+
+
+def run_fit(m, rows, batch, steps):
+    from paddle_tpu_torch.hapi.callbacks import LRScheduler
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    rec = fit_recorder()
+    t0 = time.perf_counter()
+    m.fit(DataLoader(TensorDataset([rows, rows]), batch_size=batch,
+                     shuffle=False), epochs=1, verbose=0,
+          num_iters=steps, callbacks=[LRScheduler(), rec])
+    return rec, t0
+
+
+def fit_phase(cfg, smi, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              steps=FIT_STEPS):
+    """``Model.fit`` over LLaMA-2-7B's width at ``cfg``'s depth with full
+    recompute, decorated O2, LLaMA-2's AdamW, clip and schedule, a
+    DataLoader of random rows: exact launch counts (K1 twice a layer and
+    step, forward and recompute), the schedule, the clip factor, falling
+    losses; tokens/s, step p50, MFU (the model's FLOPs only, recompute
+    not counted) and peak memory."""
+    import torch
+    from paddle_tpu_torch.models import count_params, flops_per_token
+    from paddle_tpu_torch.optimizer import lr
+
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    m = fit_setup(cfg, dev)
+    on_card = m.device.type == "cuda"
+    rows = fit_rows(cfg, batch, seq, steps)
+    print(f"fit model: llama2_7b width h={cfg.hidden_size} L={layers}, "
+          f"recompute {cfg.recompute_granularity}, "
+          f"{count_params(cfg) / 1e9:.3f}B params built float32, decorated "
+          f"O2 bf16 (the float32 originals are the masters), batch {batch} "
+          f"x {seq}, {steps} steps, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rec, t_start = run_fit(m, rows, batch, steps)
+    counts = _counts()
+    fwd = layers * steps
+    check_counts(counts, {"fwd_launches": 2 * fwd, "stream_fwd_launches": 0,
+                          "dq_launches": fwd, "dkv_launches": fwd,
+                          "seg_arm_launches": 0, "drop_arm_launches": 0,
+                          "adamw_kernel_launches": steps}, "fit")
+    want_lrs = []
+    sched = fit_schedule(lr, steps)
+    for _ in range(steps):
+        want_lrs.append(sched())
+        sched.step()
+    if rec.lrs != want_lrs:
+        raise AssertionError(f"fit learning rates {rec.lrs}, schedule "
+                             f"{want_lrs}")
+    ls, factors = rec.losses, rec.factors
+    norms = [1.0 / f if f < 1 else None for f in factors]
+    if not all(f < 1 for f in factors[:FIT_EARLY]):
+        raise AssertionError(
+            f"clip factors {factors}: the global norm of the early steps "
+            "is not above 1 at this init")
+    expect = expected_first_loss(cfg)
+    if not all(math.isfinite(x) for x in ls):
+        raise AssertionError(f"fit losses not finite: {ls}")
+    if abs(ls[0] - expect) > FIRST_LOSS_TOL:
+        raise AssertionError(f"first loss {ls[0]} is not within "
+                             f"{FIRST_LOSS_TOL} of {expect:.4f}")
+    if not ls[-1] < ls[0]:
+        raise AssertionError(f"fit loss did not fall: {ls}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    total = (torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+             if on_card else None)
+    step_s = sorted(b - a for a, b in zip(rec.ends, rec.ends[1:]))
+    tokens = batch * seq
+    tok_s = (steps - 1) * tokens / (rec.ends[-1] - rec.ends[0])
+    mfu = flops_per_token(cfg, seq) * tok_s / BF16_FLOPS
+    print(f"fit ok: {steps} steps, losses {[round(x, 4) for x in ls]} "
+          f"(first within {FIRST_LOSS_TOL} of {expect:.4f}); learning "
+          f"rates {[float(f'{x:.6g}') for x in rec.lrs]} as the schedule; "
+          f"clip factors {[round(f, 5) for f in factors]} (global norms "
+          f"{[None if n is None else round(n, 3) for n in norms]}); "
+          f"launches K1 {counts['fwd_launches']} (2 x {layers} layers x "
+          f"{steps} steps: forward and recompute), K2 "
+          f"{counts['dq_launches']} K3 {counts['dkv_launches']}, K4 "
+          f"{counts['adamw_kernel_launches']}, plain calls 0", flush=True)
+    print(f"fit llama2_7b L={layers} recompute [{smi}]: {tok_s:.1f} "
+          f"tokens/s over steps 2-{steps} ({rec.ends[-1] - rec.ends[0]:.3f}"
+          f" s; the first step took {rec.ends[0] - t_start:.3f} s), step "
+          f"p50 {step_s[len(step_s) // 2]:.4f} s (min {step_s[0]:.4f}, max "
+          f"{step_s[-1]:.4f}), MFU {100 * mfu:.2f} % of 989 TFLOP/s (the "
+          f"model's FLOPs only, recompute not counted), peak memory "
+          f"{peak if peak is None else round(peak, 2)} GiB of "
+          f"{total if total is None else round(total, 2)}", flush=True)
+    del m
+    return dict(card=smi, layers=layers, batch=batch, seq=seq, steps=steps,
+                losses=ls, lrs=rec.lrs, clip_factors=factors,
+                tokens_per_s=tok_s, step_p50_s=step_s[len(step_s) // 2],
+                step_min_s=step_s[0], step_max_s=step_s[-1], mfu=mfu,
+                peak_mem_gib=peak, card_mem_gib=total, launches=counts,
+                first_step_s=rec.ends[0] - t_start)
+
+
+def resume_phase(cfg, dev=None, batch=RECOMPUTE_BATCH, seq=TRAIN_SEQ,
+                 n=RESUME_STEPS):
+    """N steps of ``fit``, ``Model.save`` to a temporary directory, a
+    fresh model and ``Model.load``, N more steps: bit for bit 2N
+    uninterrupted steps (losses and every parameter). Decorated with
+    ``master_grad`` (float32 grads) and ``L1Decay`` beside the clip, so
+    K4 runs its three arms in one launch a step."""
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.io import Subset, TensorDataset
+
+    rows = fit_rows(cfg, batch, seq, 2 * n, seed=1)
+    _reset_counts()
+    whole = fit_setup(cfg, dev, l1=RESUME_L1, master_grad=True)
+    want = run_fit(whole, rows, batch, 2 * n)[0].losses
+    first = fit_setup(cfg, dev, l1=RESUME_L1, master_grad=True)
+    got = run_fit(first, rows[:n * batch], batch, n)[0].losses
+    tmp = tempfile.mkdtemp(prefix="fit_resume_")
+    try:
+        first.save(os.path.join(tmp, "ckpt"))
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp))
+        del first
+        fresh = fit_setup(cfg, dev, l1=RESUME_L1, master_grad=True)
+        fresh.load(os.path.join(tmp, "ckpt"))
+    finally:
+        shutil.rmtree(tmp)
+    got += run_fit(fresh, rows[n * batch:], batch, n)[0].losses
+    counts = _counts()
+    check_counts(counts, {"adamw_kernel_launches": 4 * n}, "resume")
+    if got != want:
+        raise AssertionError(f"resumed losses {got} != uninterrupted {want}")
+    for (name, a), b in zip(whole.network.state_dict().items(),
+                            fresh.network.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resumed {name} differs from the "
+                                 "uninterrupted run's")
+    print(f"resume ok: llama h={cfg.hidden_size} L={cfg.num_hidden_layers}"
+          f" bf16 (master_grad, L1 {RESUME_L1}, clip 1.0), {n} steps + save"
+          f" ({nbytes} bytes written, removed) + load + {n} steps equal "
+          f"{2 * n} uninterrupted steps bit for bit, losses "
+          f"{[round(x, 5) for x in got]} and every parameter; K4 launches "
+          f"{counts['adamw_kernel_launches']}, plain calls 0", flush=True)
+    del whole, fresh
+    return dict(losses=got, bytes=nbytes, launches=counts)
+
+
+def recompute_equal_phase(llama_cfg, gpt_cfg, dev=None, seq=TRAIN_SEQ):
+    """At 2 layers of full width, one forward and backward with recompute
+    off and on (LLaMA "full" and "core_attn"; GPT with dropout 0.1, two
+    forwards so the second draws after the first's replay): the losses
+    and every gradient bit for bit."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+
+    def grads(make, cfg, ids, forwards):
+        net = make(cfg, device=dev, seed=0)
+        net.train()
+        crit = LlamaPretrainingCriterion(cfg)
+        if getattr(cfg, "fuse_linear_cross_entropy", False):
+            crit.bind(net)
+        out = []
+        for _ in range(forwards):
+            loss = crit(net(ids), ids)
+            loss.backward()
+            out.append((loss.detach(), {n: p.grad.clone()
+                                        for n, p in net.named_parameters()}))
+            net.zero_grad(set_to_none=True)
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def compare(what, a, b):
+        for i, ((la, ga), (lb, gb)) in enumerate(zip(a, b)):
+            if not torch.equal(la, lb):
+                raise AssertionError(f"{what} forward {i}: loss "
+                                     f"{la.item()} != {lb.item()}")
+            for name in ga:
+                if not torch.equal(ga[name], gb[name]):
+                    d = (ga[name].float() - gb[name].float()).abs().max()
+                    raise AssertionError(f"{what} forward {i}: gradient of "
+                                         f"{name} differs by up to {d}")
+        return a[0][0].item()
+
+    res = {}
+    dev_t = torch.device(dev or "cuda")
+    ids = torch.as_tensor(np.random.default_rng(2).integers(
+        0, llama_cfg.vocab_size, (RECOMPUTE_BATCH, seq)), device=dev_t)
+    _reset_counts()
+    off = grads(LlamaForCausalLM, llama_cfg, ids, 1)
+    for gran in ("full", "core_attn"):
+        on = grads(LlamaForCausalLM, dataclasses.replace(
+            llama_cfg, recompute=True, recompute_granularity=gran), ids, 1)
+        res[f"llama_{gran}"] = compare(f"llama recompute {gran}", off, on)
+    counts = _counts()
+    check_counts(counts, {"fwd_launches": 2 * 5, "dq_launches": 2 * 3,
+                          "dkv_launches": 2 * 3}, "llama recompute")
+    ids = torch.as_tensor(np.random.default_rng(3).integers(
+        0, gpt_cfg.vocab_size, (RECOMPUTE_BATCH, seq)), device=dev_t)
+    off = grads(GPTForCausalLM, gpt_cfg, ids, 2)
+    on = grads(GPTForCausalLM, dataclasses.replace(gpt_cfg, recompute=True),
+               ids, 2)
+    res["gpt_dropout"] = compare("gpt recompute", off, on)
+    if torch.equal(off[0][0], off[1][0]):
+        raise AssertionError("GPT's two forwards drew the same dropout")
+    print(f"recompute ok: 2 layers at full width, batch {RECOMPUTE_BATCH} x "
+          f"{seq}: LLaMA recompute full and core_attn, GPT recompute with "
+          f"dropout {gpt_cfg.hidden_dropout_prob} (two forwards): losses "
+          f"{ {k: round(v, 5) for k, v in res.items()} } and every "
+          "gradient bit-equal to recompute off; K1 twice a layer under "
+          "recompute", flush=True)
+    return res
+
+
 # -- the serving engine ------------------------------------------------------
 
 PROMPT_LENS = (32, 1024, 200, 512, 77, 900, 333, 640)
@@ -2940,6 +3347,20 @@ def main(argv=None):
             "gpt kernel path vs plain path", path_compare_phase,
             GPTConfig.gpt3_1_3b(num_hidden_layers=2, dtype="bfloat16"),
             batch=GPT_BATCH, seq=GPT_SEQ, gpt=True)
+    if "fit" in phases:
+        res["fit"] = phase("fit", fit_phase, LlamaConfig.llama2_7b(
+            num_hidden_layers=FIT_LAYERS, recompute=True,
+            fuse_linear_cross_entropy=True), smi)
+        res["resume"] = phase("fit resume", resume_phase,
+                              LlamaConfig.llama2_7b(
+                                  num_hidden_layers=2,
+                                  fuse_linear_cross_entropy=True,
+                                  **RESUME_WIDTH))
+        res["recompute"] = phase(
+            "recompute vs none", recompute_equal_phase,
+            LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="bfloat16",
+                                  fuse_linear_cross_entropy=True),
+            GPTConfig.gpt3_1_3b(num_hidden_layers=2, dtype="bfloat16"))
     if "serve" in phases:
         # the dense reference forward of the engine check is plain float32
         # attention, so K5 is held against a plain reference, not K1
@@ -2973,7 +3394,7 @@ def main(argv=None):
 
 
 PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
-          "mistral_path", "gpt", "gpt_path", "serve", "ragged")
+          "mistral_path", "gpt", "gpt_path", "fit", "serve", "ragged")
 
 
 def kernel_rows(res):
@@ -2983,7 +3404,8 @@ def kernel_rows(res):
     of K1-K3 (launches from the GPT run), their segment arms alone and
     K6's (launches from the ``flash_attn_unpadded`` drive), K4, each with
     its launches on its path's counted run and this run's
-    measurements."""
+    measurements; K4 also with the clip factor (launches from the fit
+    run) and with the clip, L1 and float32 grads (the resume run)."""
     rows = []
     k5 = res.get("k5")
     if k5:
@@ -3084,11 +3506,22 @@ def kernel_rows(res):
                              replaces=replaces, launches=runs.get(count),
                              **_row_numbers(res["dropseg"][key])))
     if "adamw" in res:
-        rows.append(dict(name="adamw_multi_tensor", route="cuda",
-                         source="paddle_tpu_torch/ops/csrc/adamw.cu",
-                         replaces="paddle_tpu/ops/pallas/_adamw_kernel.py:114",
-                         launches=launches.get("adamw_kernel_launches"),
-                         **_row_numbers(res["adamw"])))
+        # bare (launches from the train run), with the clip factor (the
+        # fit run), with the clip, L1 and float32 grads (the resume run)
+        arms = res["adamw"]["arms"]
+        for name, numbers, count in (
+                ("adamw_multi_tensor", res["adamw"], launches),
+                ("adamw_multi_tensor_clip", arms["clip"],
+                 res.get("fit", {}).get("launches", {})),
+                ("adamw_multi_tensor_clip_l1_f32_grad",
+                 arms["clip_l1_f32_grad"],
+                 res.get("resume", {}).get("launches", {}))):
+            rows.append(dict(
+                name=name, route="cuda",
+                source="paddle_tpu_torch/ops/csrc/adamw.cu",
+                replaces="paddle_tpu/ops/pallas/_adamw_kernel.py:114",
+                launches=count.get("adamw_kernel_launches"),
+                **_row_numbers(numbers)))
     return rows
 
 

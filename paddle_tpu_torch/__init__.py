@@ -18,7 +18,12 @@ Slices so far:
   :class:`~.models.LlamaPretrainingCriterion` and
   :class:`~.optimizer.AdamW`, with the flash-attention kernels in
   ``ops/csrc/flash_attention.cu`` and the multi-tensor AdamW kernel in
-  ``ops/csrc/adamw.cu``.
+  ``ops/csrc/adamw.cu``;
+- pretraining as users run it: ``Model.fit`` / ``evaluate`` /
+  ``predict`` / ``save`` / ``load`` over :mod:`.io`'s ``DataLoader``,
+  with :mod:`.amp`, the clips of :mod:`.nn`, the schedules of
+  :mod:`.optimizer.lr`, :mod:`.regularizer`, :mod:`.metric`,
+  :mod:`.hapi.callbacks` and recompute (:mod:`.distributed.fleet`).
 """
 from .device import resolve_device, resolve_dtype
 

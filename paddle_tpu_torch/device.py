@@ -12,7 +12,7 @@ import torch
 __all__ = ["resolve_device", "resolve_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "int8": torch.int8}
+           "float16": torch.float16, "int8": torch.int8}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,7 +34,7 @@ def resolve_device(device=None) -> torch.device:
 
 def resolve_dtype(dtype) -> torch.dtype:
     """Map a dtype name of the JAX package ("float32", "bfloat16",
-    "int8") or a ``torch.dtype`` to a ``torch.dtype``."""
+    "float16", "int8") or a ``torch.dtype`` to a ``torch.dtype``."""
     if isinstance(dtype, torch.dtype):
         return dtype
     try:

@@ -1,4 +1,5 @@
 """High-level training API (counterpart: ``paddle_tpu/hapi``)."""
+from . import callbacks
 from .model import Model
 
-__all__ = ["Model"]
+__all__ = ["Model", "callbacks"]

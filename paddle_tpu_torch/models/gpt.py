@@ -18,8 +18,12 @@ hidden-dropout mask and, at the start of each training forward, one
 attention-dropout seed per layer (int32 in [0, 2**31 - 1), fetched in one
 device-to-host copy). The same seed and inputs thus give the same run.
 
-Not ported, and refused: ``tensor_parallel``, ``recompute``, the cached
-decode path (``forward_cached`` / generation) and the pipeline form
+``recompute`` (training only) runs each block under
+:func:`..distributed.fleet.recompute`, which replays the block's dropout
+masks from the model's generator in backward.
+
+Not ported, and refused: ``tensor_parallel``, the cached decode path
+(``forward_cached`` / generation) and the pipeline form
 ``GPTForCausalLMPipe``.
 """
 from __future__ import annotations
@@ -30,7 +34,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, resolve_dtype
-from ..nn import Dropout, LayerNorm
+from ..distributed.fleet.recompute import recompute
+from ..nn import Dropout, LayerNorm, Linear
 from ..nn.functional import (flashmask_attention, gelu,
                              scaled_dot_product_attention)
 
@@ -76,7 +81,7 @@ class GPTConfig:
 
 def _check_slice(cfg):
     """Refuse the flags this port does not implement yet."""
-    for name in ("tensor_parallel", "recompute"):
+    for name in ("tensor_parallel",):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"GPTConfig.{name} is not ported to paddle_tpu_torch yet")
@@ -93,8 +98,8 @@ class GPTAttention(nn.Module):
         self.hd = h // self.nh
         self.drop = cfg.attention_dropout_prob
         kw = dict(device=device, dtype=dtype)
-        self.qkv_proj = nn.Linear(h, 3 * h, **kw)
-        self.out_proj = nn.Linear(h, h, **kw)
+        self.qkv_proj = Linear(h, 3 * h, **kw)
+        self.out_proj = Linear(h, h, **kw)
 
     def forward(self, x, attn_mask=None, startend_row_indices=None,
                 seed=None):
@@ -127,12 +132,19 @@ class GPTBlock(nn.Module):
         self.ln_1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
         self.attn = GPTAttention(cfg, **kw)
         self.ln_2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
-        self.fc_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.fc_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        self.fc_in = Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc_out = Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
         self.drop = Dropout(cfg.hidden_dropout_prob, generator=generator)
 
     def forward(self, x, attn_mask=None, startend_row_indices=None,
                 attn_seed=None):
+        if self.cfg.recompute and self.training:
+            return recompute(self._block, x, attn_mask,
+                             startend_row_indices, attn_seed)
+        return self._block(x, attn_mask, startend_row_indices, attn_seed)
+
+    def _block(self, x, attn_mask=None, startend_row_indices=None,
+               attn_seed=None):
         x = x + self.drop(self.attn(
             self.ln_1(x), attn_mask=attn_mask,
             startend_row_indices=startend_row_indices, seed=attn_seed))
@@ -205,8 +217,8 @@ class GPTForCausalLM(nn.Module):
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.gpt = GPTModel(cfg, generator=self.generator, device=dev,
                             dtype=dtype)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                 device=dev, dtype=dtype)
+        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                              device=dev, dtype=dtype)
         self.init_weights(self.generator)
         if cfg.tie_word_embeddings:
             # nn.Linear's [out, in] = [vocab, hidden] is the embedding's

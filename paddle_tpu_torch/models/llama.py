@@ -19,9 +19,14 @@ Module names mirror the JAX package (``llama.layers.0.self_attn.q_proj``
 - Serving runs the trunk through ``serving/engine.py::_paged_forward``,
   which reuses these modules' weights.
 
+- ``recompute`` (training only): ``recompute_granularity="full"`` runs
+  each decoder layer, ``"core_attn"`` each layer's attention (its
+  projections included), under :func:`..distributed.fleet.recompute`, so
+  backward runs it again (K1 launches twice a layer and step).
+
 Configuration flags outside the ported slices (tensor, sequence and
-context parallelism, MoE, recompute) raise ``NotImplementedError``; none
-is silently ignored.
+context parallelism, MoE, ``recompute_granularity="full_attn"``) raise
+``NotImplementedError``; none is silently ignored.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, resolve_dtype
-from ..nn import RMSNorm
+from ..distributed.fleet.recompute import recompute
+from ..nn import Linear, RMSNorm
 from ..nn.functional import (flashmask_attention,
                              fused_rotary_position_embedding,
                              scaled_dot_product_attention, swiglu)
@@ -102,12 +108,18 @@ def _check_slice(cfg):
         "sequence_parallel": cfg.sequence_parallel,
         "context_parallel": cfg.context_parallel,
         "moe_num_experts": cfg.moe_num_experts > 0,
-        "recompute": cfg.recompute,
+        "recompute_granularity='full_attn'": (
+            cfg.recompute and cfg.recompute_granularity == "full_attn"),
     }
     for name, on in unsupported.items():
         if on:
             raise NotImplementedError(
                 f"LlamaConfig.{name} is not ported to paddle_tpu_torch yet")
+    if cfg.recompute and cfg.recompute_granularity not in ("full",
+                                                           "core_attn"):
+        raise ValueError(f"recompute_granularity="
+                         f"{cfg.recompute_granularity!r}: use 'full' or "
+                         "'core_attn'")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"LlamaConfig.dtype={cfg.dtype!r}: use "
                          "'float32' or 'bfloat16'")
@@ -123,10 +135,10 @@ class LlamaAttention(nn.Module):
         h = cfg.hidden_size
         kv_out = self.num_kv_heads * self.head_dim
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.q_proj = nn.Linear(h, h, **kw)
-        self.k_proj = nn.Linear(h, kv_out, **kw)
-        self.v_proj = nn.Linear(h, kv_out, **kw)
-        self.o_proj = nn.Linear(h, h, **kw)
+        self.q_proj = Linear(h, h, **kw)
+        self.k_proj = Linear(h, kv_out, **kw)
+        self.v_proj = Linear(h, kv_out, **kw)
+        self.o_proj = Linear(h, h, **kw)
 
     def forward(self, x, position_ids, attn_mask=None,
                 startend_row_indices=None):
@@ -182,9 +194,9 @@ class LlamaMLP(nn.Module):
         super().__init__()
         h, m = cfg.hidden_size, cfg.intermediate_size
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(h, m, **kw)
-        self.up_proj = nn.Linear(h, m, **kw)
-        self.down_proj = nn.Linear(m, h, **kw)
+        self.gate_proj = Linear(h, m, **kw)
+        self.up_proj = Linear(h, m, **kw)
+        self.down_proj = Linear(m, h, **kw)
 
     def forward(self, x):
         return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -193,6 +205,7 @@ class LlamaMLP(nn.Module):
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
+        self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        **kw)
@@ -201,11 +214,24 @@ class LlamaDecoderLayer(nn.Module):
                                                 cfg.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(cfg, **kw)
 
+    def _block(self, x, position_ids, attn_mask=None,
+               startend_row_indices=None, attn=None):
+        h = x + (attn or self.self_attn)(self.input_layernorm(x),
+                                         position_ids, attn_mask,
+                                         startend_row_indices)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
     def forward(self, x, position_ids, attn_mask=None,
                 startend_row_indices=None):
-        h = x + self.self_attn(self.input_layernorm(x), position_ids,
-                               attn_mask, startend_row_indices)
-        return h + self.mlp(self.post_attention_layernorm(h))
+        if not (self.cfg.recompute and self.training):
+            return self._block(x, position_ids, attn_mask,
+                               startend_row_indices)
+        if self.cfg.recompute_granularity == "core_attn":
+            return self._block(
+                x, position_ids, attn_mask, startend_row_indices,
+                attn=lambda *a: recompute(self.self_attn, *a))
+        return recompute(self._block, x, position_ids, attn_mask,
+                         startend_row_indices)
 
 
 class LlamaModel(nn.Module):
@@ -248,8 +274,8 @@ class LlamaForCausalLM(nn.Module):
         dtype = resolve_dtype(cfg.dtype)
         self.cfg = cfg
         self.llama = LlamaModel(cfg, device=dev, dtype=dtype)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                 bias=False, device=dev, dtype=dtype)
+        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                              device=dev, dtype=dtype)
         self.init_weights(torch.Generator(device=dev).manual_seed(seed))
         if cfg.tie_word_embeddings:
             # nn.Linear's [out, in] = [vocab, hidden] is the embedding's

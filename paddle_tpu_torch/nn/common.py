@@ -1,11 +1,24 @@
-"""Dropout (counterpart: ``paddle_tpu/nn/common.py``)."""
+"""Linear and Dropout (counterpart: ``paddle_tpu/nn/common.py``)."""
 from __future__ import annotations
 
+import torch.nn.functional as F
 from torch import nn
 
+from ..amp.state import cast_for_op
 from .functional import dropout
 
-__all__ = ["Dropout"]
+__all__ = ["Dropout", "Linear"]
+
+
+class Linear(nn.Linear):
+    """``torch.nn.Linear`` (weight ``[out, in]``) behind the JAX package's
+    AMP hook: under ``auto_cast`` a float32 input, weight and bias are
+    cast to the AMP dtype (category ``"matmul"``, as its ``F.linear``)."""
+
+    def forward(self, x):
+        x, w = cast_for_op((x, self.weight), "matmul")
+        (b,) = cast_for_op((self.bias,), "matmul")
+        return F.linear(x, w, b)
 
 
 class Dropout(nn.Module):

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..amp.state import cast_for_op
 from ..ops.flash_attention import (flash_attention,
                                    flash_attention_bshd, flashmask_attention)
 
@@ -123,7 +124,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     additive; taken without a gradient, as the JAX package detaches it);
     a bool key-padding mask ``[B, 1, 1, Sk]`` runs on the segment arms.
     Dropout in training runs the kernels' counter-hash arms at ``seed``
-    (an int, which it needs)."""
+    (an int, which it needs). Under ``auto_cast`` float32 q, k and v are
+    cast to the AMP dtype first (category ``"attention"``)."""
+    query, key, value = cast_for_op((query, key, value), "attention")
     if attn_mask is not None:
         attn_mask = attn_mask.detach()
     return flash_attention_bshd(query, key, value, mask=attn_mask,

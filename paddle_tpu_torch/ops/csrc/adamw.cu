@@ -3,11 +3,16 @@
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/_adamw_kernel.py
 // ::_adamw_kernel (its pl.pallas_call is at _adamw_kernel.py:114). Same
-// rule, element by element, in float32:
-//   g  = grad (+ wd * p when the decay is coupled)
+// rule, element by element, in float32, with the steps the JAX package's
+// Optimizer.step runs around it folded in (optimizer.py, _update_one):
+//   g  = grad * clip, rounded to the grad's dtype   (global-norm clip:
+//        clip = min(clip_norm / max(|g|, 1e-12), 1), read from device
+//        memory; only on leaves whose clip flag is set)
+//   g += l1 * sign(p)                                (L1Decay)
+//   g += wd * p                                      (coupled decay)
 //   m1 = b1 * m1 + (1 - b1) * g;   m2 = b2 * m2 + (1 - b2) * g * g
-//   upd = (m1 / bc1) / (sqrt(m2) / sbc2 + eps)   (bc1 = 1 - b1^t,
-//                                                 sbc2 = sqrt(1 - b2^t))
+//   upd = (m1 / bc1) / (sqrt(m2 / bc2) + eps)   (bc1 = 1 - b1^t,
+//                                                bc2 = 1 - b2^t)
 //   upd += wd * p (decoupled);     p_new = p - lr * upd
 // where p is the float32 master weight when the leaf has one (bf16 params
 // under multi_precision), else the param itself. The update is IN PLACE:
@@ -20,6 +25,12 @@
 // the grads are new tensors; block c finds its leaf by binary search over
 // the table's first-chunk column and updates elements [c0, c0 + kChunk)
 // of it, 16-byte vectors where every pointer of the leaf is aligned.
+//
+// The grad has its own dtype (float32 grads under bf16 params with
+// decorate(master_grad=True)). Every operation is rounded as written, in
+// the plain version's order (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn:
+// no FMA contraction), so master, moments and param are bit for bit what
+// the plain version's separate PyTorch ops give.
 //
 // What bounds it: bytes. Per parameter with a master weight it reads the
 // grad (2 B), master, m1, m2 (12 B) and writes the param (2 B), master,
@@ -44,17 +55,20 @@ constexpr long long kChunk = 8192;  // elements per block
 struct Leaf {
   long long param;    // param (written; read too when there is no master)
   long long master;   // float32 master weight, or 0
-  long long grad;     // grad, in the param's dtype
+  long long grad;     // grad
   long long m1, m2;   // float32 moments
   long long n;        // elements
   long long chunk0;   // index of the leaf's first chunk over all leaves
-  long long dtype;    // param and grad dtype
-  long long vec;      // 1: every pointer allows 4-element vector access
-  long long unused;
+  long long dtype;    // param dtype
+  long long gdtype;   // grad dtype
+  long long flags;    // kVec | kClip
 };
 
+constexpr long long kVec = 1;   // every pointer allows 4-element access
+constexpr long long kClip = 2;  // the grad takes the clip factor
+
 struct Hyper {
-  float lr, b1, b2, omb1, omb2, eps, wd, bc1, sbc2;
+  float lr, b1, b2, omb1, omb2, eps, wd, bc1, bc2, l1;
   int decoupled;
 };
 
@@ -97,18 +111,36 @@ __device__ __forceinline__ void store4(void* p, long long i, int dt,
   }
 }
 
+// the grad as the rule sees it: clipped and rounded to its dtype, then
+// the L1 term of the (master) weight added
+__device__ __forceinline__ float prep_grad(float g, float p, float cf,
+                                           bool clip, int gdt,
+                                           const Hyper& h) {
+  if (clip) {
+    g = __fmul_rn(g, cf);
+    if (gdt == kBF16) g = __bfloat162float(__float2bfloat16(g));
+  }
+  if (h.l1 != 0.f)
+    g = __fadd_rn(g, p > 0.f ? h.l1 : (p < 0.f ? -h.l1 : 0.f));
+  return g;
+}
+
 __device__ __forceinline__ void adam1(float g, float& p, float& m1,
-                                      float& m2, const Hyper& h) {
-  if (h.wd != 0.f && !h.decoupled) g += h.wd * p;
-  m1 = h.b1 * m1 + h.omb1 * g;
-  m2 = h.b2 * m2 + h.omb2 * g * g;
-  float upd = (m1 / h.bc1) / (sqrtf(m2) / h.sbc2 + h.eps);
-  if (h.wd != 0.f && h.decoupled) upd += h.wd * p;
-  p = p - h.lr * upd;
+                                      float& m2, float cf, bool clip,
+                                      int gdt, const Hyper& h) {
+  g = prep_grad(g, p, cf, clip, gdt, h);
+  if (h.wd != 0.f && !h.decoupled) g = __fadd_rn(g, __fmul_rn(h.wd, p));
+  m1 = __fadd_rn(__fmul_rn(h.b1, m1), __fmul_rn(h.omb1, g));
+  m2 = __fadd_rn(__fmul_rn(h.b2, m2), __fmul_rn(__fmul_rn(h.omb2, g), g));
+  float upd = __fdiv_rn(__fdiv_rn(m1, h.bc1),
+                        __fadd_rn(__fsqrt_rn(__fdiv_rn(m2, h.bc2)), h.eps));
+  if (h.wd != 0.f && h.decoupled) upd = __fadd_rn(upd, __fmul_rn(h.wd, p));
+  p = __fsub_rn(p, __fmul_rn(h.lr, upd));
 }
 
 __global__ void __launch_bounds__(kThreads)
     adamw_multi_tensor_kernel(const Leaf* __restrict__ leaves, int n_leaves,
+                              const float* __restrict__ clip_factor,
                               Hyper h) {
   const long long chunk = blockIdx.x;
   int lo = 0, hi = n_leaves - 1;  // the last leaf whose chunk0 <= chunk
@@ -118,6 +150,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   const Leaf L = leaves[lo];
   const int dt = static_cast<int>(L.dtype);
+  const int gdt = static_cast<int>(L.gdtype);
+  const bool clip = clip_factor != nullptr && (L.flags & kClip);
+  const float cf = clip ? *clip_factor : 1.f;
   void* param = reinterpret_cast<void*>(L.param);
   float* master = reinterpret_cast<float*>(L.master);
   const void* grad = reinterpret_cast<const void*>(L.grad);
@@ -127,17 +162,17 @@ __global__ void __launch_bounds__(kThreads)
   const long long end = min(L.n, base + kChunk);
 
   for (long long i = base + 4 * threadIdx.x; i < end; i += 4 * kThreads) {
-    if (L.vec && i + 4 <= end) {
-      const float4 g = load4(grad, i, dt);
+    if ((L.flags & kVec) && i + 4 <= end) {
+      const float4 g = load4(grad, i, gdt);
       float4 p = master != nullptr
                      ? *reinterpret_cast<const float4*>(master + i)
                      : load4(param, i, dt);
       float4 a = *reinterpret_cast<const float4*>(m1p + i);
       float4 b = *reinterpret_cast<const float4*>(m2p + i);
-      adam1(g.x, p.x, a.x, b.x, h);
-      adam1(g.y, p.y, a.y, b.y, h);
-      adam1(g.z, p.z, a.z, b.z, h);
-      adam1(g.w, p.w, a.w, b.w, h);
+      adam1(g.x, p.x, a.x, b.x, cf, clip, gdt, h);
+      adam1(g.y, p.y, a.y, b.y, cf, clip, gdt, h);
+      adam1(g.z, p.z, a.z, b.z, cf, clip, gdt, h);
+      adam1(g.w, p.w, a.w, b.w, cf, clip, gdt, h);
       *reinterpret_cast<float4*>(m1p + i) = a;
       *reinterpret_cast<float4*>(m2p + i) = b;
       if (master != nullptr) *reinterpret_cast<float4*>(master + i) = p;
@@ -146,7 +181,7 @@ __global__ void __launch_bounds__(kThreads)
       for (long long t = i; t < min(i + 4, end); ++t) {
         float p = master != nullptr ? master[t] : load1(param, t, dt);
         float a = m1p[t], b = m2p[t];
-        adam1(load1(grad, t, dt), p, a, b, h);
+        adam1(load1(grad, t, gdt), p, a, b, cf, clip, gdt, h);
         m1p[t] = a;
         m2p[t] = b;
         if (master != nullptr) master[t] = p;
@@ -160,18 +195,20 @@ __global__ void __launch_bounds__(kThreads)
 
 // One launch over every leaf of the table (n_leaves rows of ten int64,
 // in device memory, sorted by chunk0, every leaf non-empty; n_chunks =
-// the sum of ceil(n / 8192)). Returns cudaGetLastError() after the
-// launch (0 = launched).
+// the sum of ceil(n / 8192)). clip_factor: one float32 in device memory,
+// or null for no clip. Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int adamw_multi_tensor(const void* table, int n_leaves,
-                                  long long n_chunks, float lr, float b1,
-                                  float b2, float omb1, float omb2,
-                                  float eps, float wd, float bc1, float sbc2,
-                                  int decoupled, void* stream) {
+                                  long long n_chunks,
+                                  const float* clip_factor, float lr,
+                                  float b1, float b2, float omb1, float omb2,
+                                  float eps, float wd, float bc1, float bc2,
+                                  float l1, int decoupled, void* stream) {
   if (n_leaves <= 0 || n_chunks <= 0) return 0;
   if (n_chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const Hyper h{lr, b1, b2, omb1, omb2, eps, wd, bc1, sbc2, decoupled};
+  const Hyper h{lr, b1, b2, omb1, omb2, eps, wd, bc1, bc2, l1, decoupled};
   adamw_multi_tensor_kernel<<<static_cast<unsigned>(n_chunks), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Leaf*>(table), n_leaves, h);
+      static_cast<const Leaf*>(table), n_leaves, clip_factor, h);
   return static_cast<int>(cudaGetLastError());
 }

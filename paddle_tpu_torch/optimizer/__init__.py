@@ -1,6 +1,6 @@
 """Optimizers (counterpart: ``paddle_tpu/optimizer``): the base with
-parameter groups and master weights, Adam and AdamW over the
-multi-tensor kernel K4, and the LR-scheduler base."""
+parameter groups, master weights, grad clipping and L1, Adam and AdamW
+over the multi-tensor kernel K4, and the learning-rate schedules."""
 from . import lr
 from .lr import LRScheduler
 from .optimizer import Optimizer

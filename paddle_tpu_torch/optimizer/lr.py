@@ -1,11 +1,24 @@
-"""Learning-rate schedules (counterpart: ``paddle_tpu/optimizer/lr.py``).
+"""Learning-rate schedules (counterpart: ``paddle_tpu/optimizer/lr.py``),
+all seventeen of the JAX package's, rule for rule.
 
-Only the base class is ported so far, so that an optimizer's ``get_lr``
-takes a scheduler; the concrete schedules come in a later slice. A
-schedule is host-side scalar state, a float per step."""
+A schedule is host-side scalar state, a float per step: the optimizer
+reads it when it steps and hands the float to K4, so a schedule never
+touches the device. ``state_dict`` keeps the scalar attributes (a
+wrapped schedule, as in :class:`LinearWarmup`, is set from the outer
+one's ``last_epoch`` at each step, so it needs no state of its own).
+"""
 from __future__ import annotations
 
-__all__ = ["LRScheduler"]
+import math
+
+import torch
+
+__all__ = ["LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+           "InverseTimeDecay", "PolynomialDecay", "LinearWarmup",
+           "ExponentialDecay", "MultiStepDecay", "StepDecay", "LambdaDecay",
+           "ReduceOnPlateau", "CosineAnnealingDecay",
+           "CosineAnnealingWarmRestarts", "OneCycleLR", "CyclicLR",
+           "MultiplicativeDecay", "LinearLR"]
 
 
 class LRScheduler:
@@ -38,3 +51,320 @@ class LRScheduler:
 
     set_dict = set_state_dict
     state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (self.base_lr * self.d_model ** -0.5 *
+                min(step ** -0.5, step * self.warmup_steps ** -1.5))
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / float(self.decay_steps)) or 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, self.decay_steps)
+        return ((self.base_lr - self.end_lr) *
+                (1 - step / float(decay_steps)) ** self.power + self.end_lr)
+
+
+class LinearWarmup(LRScheduler):
+    """Linear from ``start_lr`` to ``end_lr`` over ``warmup_steps``, then
+    ``learning_rate`` (a float, or a schedule stepped to ``last_epoch -
+    warmup_steps``)."""
+
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
+                 last_epoch=-1, verbose=False):
+        self.lr = learning_rate
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        super().__init__(start_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (self.end_lr - self.start_lr) * (
+                self.last_epoch / float(self.warmup_steps)) + self.start_lr
+        if isinstance(self.lr, LRScheduler):
+            self.lr.step(self.last_epoch - self.warmup_steps)
+            return self.lr()
+        return float(self.lr)
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch //
+                                             self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class ReduceOnPlateau(LRScheduler):
+    """Multiplies the rate by ``factor`` once the metric passed to
+    :meth:`step` has not improved for ``patience`` calls. A tensor metric
+    is read on the host."""
+
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        cur = float(metrics.item() if isinstance(metrics, torch.Tensor)
+                    else metrics)
+        self.last_epoch += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+            return
+        if self.best is None or self._is_better(cur):
+            self.best = cur
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            self.last_lr = max(self.last_lr * self.factor, self.min_lr)
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+    def _is_better(self, cur):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return cur < self.best * (1 - self.threshold)
+            return cur < self.best - self.threshold
+        if self.threshold_mode == "rel":
+            return cur > self.best * (1 + self.threshold)
+        return cur > self.best + self.threshold
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return (self.eta_min + (self.base_lr - self.eta_min) *
+                (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2)
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0,
+                 last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_i = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        self.T_cur = last_epoch
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return (self.eta_min + (self.base_lr - self.eta_min) *
+                (1 + math.cos(math.pi * max(self.T_cur, 0) / self.T_i)) / 2)
+
+    def step(self, epoch=None):
+        self.last_epoch += 1
+        self.T_cur += 1
+        if self.T_cur >= self.T_i:
+            self.T_cur -= self.T_i
+            self.T_i *= self.T_mult
+        self.last_lr = self.get_lr()
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up = self.phase_pct * self.total_steps
+        if step <= up:
+            return self._anneal(self.initial_lr, self.max_lr,
+                                step / max(up, 1))
+        return self._anneal(self.max_lr, self.end_lr,
+                            (step - up) / max(self.total_steps - up, 1))
+
+    def _anneal(self, a, b, pct):
+        if self.anneal == "cos":
+            return b + (a - b) * (1 + math.cos(math.pi * pct)) / 2
+        return a + (b - a) * pct
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate,
+                 step_size_up=2000, step_size_down=None, mode="triangular",
+                 exp_gamma=1.0, scale_fn=None, scale_mode="cycle",
+                 last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_up + self.step_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x < self.step_up:
+            pct = x / self.step_up
+        else:
+            pct = 1 - (x - self.step_up) / self.step_down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.mode == "triangular2":
+            amp /= 2 ** (cycle - 1)
+        elif self.mode == "exp_range":
+            amp *= self.exp_gamma ** self.last_epoch
+        return self.base_lr + amp
+
+
+class MultiplicativeDecay(LRScheduler):
+    """lr_t = lr_{t-1} * lr_lambda(t)."""
+
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = learning_rate
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
+class LinearLR(LRScheduler):
+    """The rate's factor goes linearly from ``start_factor`` to
+    ``end_factor`` over ``total_steps``, then stays at ``end_factor``."""
+
+    def __init__(self, learning_rate, total_steps, start_factor=1. / 3,
+                 end_factor=1.0, last_epoch=-1, verbose=False):
+        if total_steps <= 0:
+            raise ValueError("total_steps must be positive")
+        if not (0 < start_factor <= 1):
+            raise ValueError("start_factor must be in (0, 1]")
+        if not (0 <= end_factor <= 1):
+            raise ValueError("end_factor must be in [0, 1]")
+        self.total_steps = int(total_steps)
+        self.start_factor = float(start_factor)
+        self.end_factor = float(end_factor)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = min(max(self.last_epoch, 0), self.total_steps)
+        factor = self.start_factor + (self.end_factor - self.start_factor) \
+            * (t / self.total_steps)
+        return self.base_lr * factor

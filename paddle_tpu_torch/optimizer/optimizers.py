@@ -2,8 +2,9 @@
 its other optimizers come in a later slice).
 
 On CUDA parameters a step is ONE launch of the multi-tensor kernel K4
-over every leaf (:mod:`..ops.adamw_kernel`); on CPU parameters it is the
-same rule leaf by leaf. ``amsgrad=True`` takes the plain rule on either
+over every leaf (:mod:`..ops.adamw_kernel`), the global-norm clip factor
+and the L1 term folded in; on CPU parameters it is the same rule leaf by
+leaf. ``amsgrad=True`` takes the plain rule on either
 device, as the JAX package takes its XLA rule, and is counted under
 ``adamw_kernel.stats["amsgrad_plain_calls"]``.
 
@@ -58,15 +59,18 @@ class Adam(Optimizer):
             eps=hp["eps"], wd=hp["weight_decay"], decoupled=hp["decoupled"],
             amsgrad=hp["amsgrad"])
 
-    def _apply(self, params, grads, states, lr, step):
+    def _apply(self, params, grads, states, lr, step, clip=None,
+               clip_mask=None):
         if self._amsgrad:
             adamw_kernel.stats["amsgrad_plain_calls"] += 1
-            return super()._apply(params, grads, states, lr, step)
+            return super()._apply(params, grads, states, lr, step, clip,
+                                  clip_mask)
         hp = self._hyperparams()
         adamw_kernel.adamw_update(
             params, grads, states, lr=lr, step=step, b1=hp["b1"],
             b2=hp["b2"], eps=hp["eps"], wd=hp["weight_decay"],
-            decoupled=hp["decoupled"])
+            decoupled=hp["decoupled"], l1=self._l1, clip=clip,
+            clip_mask=clip_mask)
 
 
 class AdamW(Adam):

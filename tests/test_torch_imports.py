@@ -69,7 +69,11 @@ def test_the_check_matches_module_names_exactly():
                 "ops/flash_attention.py", "ops/adamw_kernel.py",
                 "optimizer/optimizer.py", "optimizer/optimizers.py",
                 "optimizer/lr.py", "hapi/model.py", "models/llama.py",
-                "models/gpt.py", "nn/common.py", "nn/norm.py"):
+                "models/gpt.py", "nn/common.py", "nn/norm.py",
+                "nn/clip_grad.py", "regularizer.py", "amp/__init__.py",
+                "amp/state.py", "distributed/fleet/recompute.py",
+                "io/__init__.py", "metric/__init__.py", "hapi/callbacks.py",
+                "framework/io_save.py"):
         assert f"paddle_tpu_torch/{mod}" in names, mod
 
 
@@ -199,15 +203,25 @@ def test_cross_length_and_sdpa_options_are_refused_not_dropped():
 
 
 def test_arguments_the_port_would_not_read_are_refused():
-    """No argument is accepted and then ignored: ``Model(inputs=,
-    labels=)`` (fit's batch split), the criterion's ``model=`` (the MoE
-    aux loss) raise; ``use_multi_tensor`` is not an argument at all (the
-    card's step is always the multi-tensor kernel)."""
+    """No argument is accepted and then ignored: ``fit``'s
+    ``accumulate_grad_batches`` and ``drop_last`` (which the JAX package
+    never reads), ``prepare``'s AMP dtype other than bfloat16 (the JAX
+    package reads only the level), the criterion's ``model=`` (the MoE
+    aux loss) raise;
+    ``use_multi_tensor`` is not an argument at all (the card's step is
+    always the multi-tensor kernel). ``Model(inputs=, labels=)`` is read:
+    the count of inputs splits fit's batches."""
     from paddle_tpu_torch.optimizer import Adam
     net = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
-    for kw in (dict(inputs=[object()]), dict(labels=[object()])):
-        with pytest.raises(NotImplementedError, match="fit"):
-            Model(net, **kw)
+    model = Model(net, inputs=["ids"], labels=["labels"])
+    assert model._split_batch((1, 2, 3)) == ([1], [2, 3])
+    for kw in (dict(accumulate_grad_batches=4), dict(drop_last=True)):
+        with pytest.raises(NotImplementedError, match="never reads"):
+            model.fit([], verbose=0, **kw)
+    with pytest.raises(NotImplementedError, match="reads only 'level'"):
+        model.prepare(amp_configs={"level": "O1", "dtype": "float16"})
+    assert model.prepare(amp_configs={"level": "O2", "dtype": "bfloat16"}
+                         )._amp_level == "O2"
     with pytest.raises(NotImplementedError, match="model="):
         LlamaPretrainingCriterion(LlamaConfig(**TINY), model=net)
     with pytest.raises(TypeError):
@@ -224,6 +238,7 @@ def test_gpt_entry_points_do_not_fall_back_to_the_cpu(no_cuda):
         GPTForCausalLM(cfg)
     net = GPTForCausalLM(cfg, device="cpu")
     assert net.device.type == "cpu" and net.generator.device.type == "cpu"
-    for kw in (dict(tensor_parallel=True), dict(recompute=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            GPTForCausalLM(GPTConfig.tiny(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        GPTForCausalLM(GPTConfig.tiny(tensor_parallel=True), device="cpu")
+    assert GPTForCausalLM(GPTConfig.tiny(recompute=True),
+                          device="cpu").cfg.recompute

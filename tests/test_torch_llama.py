@@ -147,7 +147,7 @@ def test_state_dict_conversion_transposes_and_refuses_mismatches():
 @pytest.mark.parametrize("flag", [
     dict(tensor_parallel=True), dict(sequence_parallel=True),
     dict(context_parallel="ring"), dict(moe_num_experts=4),
-    dict(recompute=True)])
+    dict(recompute=True, recompute_granularity="full_attn")])
 def test_unported_config_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         LlamaForCausalLM(LlamaConfig(**{**TINY, **flag}), device="cpu")
