@@ -124,6 +124,31 @@ Phases, each of which passes or ends the script with a non-zero code:
    forwards times, the same dense checks (three greedy prompts past the
    window).
 
+14. ``generate``: ``cached_attention``'s K5 call (the static cache as a
+   page pool) against its plain version (the JAX package's einsum form)
+   at the decode, prefill and speculative-verify shapes of the three
+   models below, its int8 and window arms and a float32 prompt, two
+   planted faults (a slot written at offset + 1, the window one key too
+   wide) rejected, its time at the LLaMA decode shape; then
+   ``model.generate`` at full width and depth, bf16, random weights:
+   LLaMA-2-7B, batch 8 x 512-token prompts, 128 new tokens, greedy,
+   sampled (temperature 0.8, top-k 50, top-p 0.9; one seed twice equal,
+   another different), repetition penalty 1.2 + min_new_tokens 16 + eos,
+   the int8 cache, beam search (batch 2 x 4 beams, 64 new, length
+   penalty 0.6 with eos, and 0 without), speculative decoding (k 4) with
+   a self-draft and with a 2-layer draft, and in float32 with a
+   self-draft (26 rounds, vanilla greedy's tokens, both unless at a
+   float32 tie); Mistral-7B, batch 2 x 4600
+   tokens (past the window), 64 new; GPT-3 1.3B, batch 8 x 1024, 128
+   new. K5 launches exactly layers x forwards (counted per replay), the
+   plain version never, every decode step a CUDA graph replay, one host
+   fetch a call (a speculative call one more a round); greedy rows pass
+   the serve phase's dense checks (int8 at a margin of 1.0), the best
+   beam's dense re-score matches its score and is at least greedy's,
+   speculative greedy departs from vanilla greedy only at a near-tie;
+   prefill time, decode tokens/s, step p50, graphs and peak memory, and a
+   3-step profile of the LLaMA decode step.
+
 Serving phases report TTFT p50 and max, decode tokens/s (steps with no
 prefill chunk), output tokens/s, step time p50 and max and peak memory.
 
@@ -3232,6 +3257,875 @@ def trace_steps(step, n_steps, what, smi):
                      for n, m, c in top])
 
 
+# -- generate() --------------------------------------------------------------
+
+# LLaMA-2-7B: batch 8 x 512-token prompts, 128 new tokens; beams: batch 2 x
+# 4 beams, 64 new; speculative: k 4; Mistral-7B: batch 2 x 4600 (past the
+# 4096 window), 64 new; GPT-3 1.3B: batch 8 x 1024, 128 new
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 512, 128
+GEN_BEAMS, GEN_BEAM_BATCH, GEN_BEAM_NEW = 4, 2, 64
+GEN_SPEC_K = 4
+GEN_MISTRAL = (2, 4600, 64)
+GEN_GPT = (8, 1024, 128)
+GEN_EOS = 2
+# the int8 cache's teacher-forced margin, stated before the first run:
+# each K/V element moves by at most 1/254 of its row's absmax (~0.6 % of a
+# row's RMS for 128 Gaussian-like values, ~3x bf16's own 2**-9 rounding of
+# K/V), so its logit noise is taken as up to twice the bf16 path's (0.19-
+# 0.23 at full depth), and the margin doubles the bf16 check's 0.5
+INT8_MARGIN = 1.0
+# beam scores (sums of float32 log-probs of bf16 logits): a bf16 logit of
+# |x| ~ 5-10 is rounded by up to 2**-5, so 0.02 a token bounds the
+# rounding and the kernel-vs-dense noise of the chosen tokens' log-probs
+BEAM_TOL_PER_TOKEN = 0.02
+GEN_FAULT_WINDOW = 16   # the window-off-by-one probe's window
+# float32 logits of two summation orders: a top-2 gap below this is a tie
+F32_TIE = 1e-3
+
+
+def gen_k5_cases():
+    """``cached_attention``'s K5 call at the decode and prefill shapes of
+    generate's three models, its int8 and window arms and the speculative
+    verify (S = k+1): (name, b, s, t, h, kv, offset, window, int8, dtype,
+    head_dim)."""
+    import torch
+    bf16 = torch.bfloat16
+    t_ll = GEN_PROMPT + GEN_NEW
+    mb, mp, mn = GEN_MISTRAL
+    t_mi = -(-(mp + mn) // 16) * 16
+    gb, gp, gn = GEN_GPT
+    return [
+        ("llama2_7b decode", GEN_BATCH, 1, t_ll, 32, 32, t_ll - 65, None,
+         False, bf16, 128),
+        ("llama2_7b prefill", GEN_BATCH, GEN_PROMPT, t_ll, 32, 32, 0, None,
+         False, bf16, 128),
+        ("llama2_7b speculative verify S=k+1", GEN_BATCH, GEN_SPEC_K + 1,
+         t_ll + 16, 32, 32, 300, None, False, bf16, 128),
+        ("llama2_7b decode int8", GEN_BATCH, 1, t_ll, 32, 32, t_ll - 9, None,
+         True, bf16, 128),
+        ("llama2_7b prefill int8", GEN_BATCH, GEN_PROMPT, t_ll, 32, 32, 0,
+         None, True, bf16, 128),
+        ("mistral_7b decode window 4096", mb, 1, t_mi, 32, 8, mp + 30, 4096,
+         False, bf16, 128),
+        ("mistral_7b prefill window 4096", mb, mp, t_mi, 32, 8, 0, 4096,
+         False, bf16, 128),
+        ("mistral_7b decode int8 window 4096", mb, 1, t_mi, 32, 8, mp + 2,
+         4096, True, bf16, 128),
+        ("gpt3_1_3b decode", gb, 1, gp + gn, 16, 16, gp + 100, None, False,
+         bf16, 128),
+        ("gpt3_1_3b prefill", gb, gp, gp + gn, 16, 16, 0, None, False, bf16,
+         128),
+        ("float32 prompt (split form)", 2, 64, 128, 8, 8, 10, 40, False,
+         torch.float32, 128),
+    ]
+
+
+def gen_k5_inputs(b, s, t, h, kv, int8, dtype, d, seed, dev):
+    """Random q, k_new, v_new and a cache whose every slot holds random
+    values (stale slots past the offset included, which the mask hides)."""
+    import torch
+    from paddle_tpu_torch.serving.attention import quantize_q8
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tr = -(-t // 16) * 16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    q = rnd(b, s, h, d).to(dtype)
+    kn, vn = rnd(b, s, kv, d).to(dtype), rnd(b, s, kv, d).to(dtype)
+    if int8:
+        kb, vb = quantize_q8(rnd(b, tr, kv, d)), quantize_q8(rnd(b, tr, kv, d))
+    else:
+        kb, vb = rnd(b, tr, kv, d).to(dtype), rnd(b, tr, kv, d).to(dtype)
+    return q, kn, vn, kb, vb
+
+
+def _clone_cache(x):
+    return tuple(y.clone() for y in x) if isinstance(x, tuple) else x.clone()
+
+
+def gen_kernel_checks(dev="cuda"):
+    """``cached_attention`` through K5 against its plain version (the JAX
+    package's einsum form) at every case of :func:`gen_k5_cases`, with the
+    ``kernels`` phase's K5 tolerance; then two planted faults (a cache
+    slot written at offset + 1, the window one key too wide) that the same
+    comparison must reject; then K5's time at generate's LLaMA decode
+    shape (B 8, context 512-639) beside the plain version, SDPA on the
+    cache and the bound. Returns (worst bf16 error, checks, timing)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.serving import attention as A
+
+    worst, checks = 0.0, []
+    for i, (name, b, s, t, h, kv, off, win, int8, dtype, d) in enumerate(
+            gen_k5_cases()):
+        q, kn, vn, kb, vb = gen_k5_inputs(b, s, t, h, kv, int8, dtype, d,
+                                          200 + i, dev)
+        before = dict(A.stats)
+        got, kb, vb = G.cached_attention(q, kn, vn, kb, vb,
+                                         G.CachePlan(off, b, s, kb),
+                                         d ** -0.5, window=win)
+        forms = {k_: A.stats[k_] - before[k_] for k_ in
+                 ("kernel_launches", "decode_launches", "tile_launches",
+                  "combine_launches")}
+        want = G.cached_attention_plain(q, kb, vb, off, d ** -0.5, win)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        ratio = k5_ratio(got, want, tol)
+        err = (got.float() - want.float()).abs().max().item()
+        tiled = A.tile_capable(dtype, torch.int8 if int8 else dtype, d) \
+            and s >= 2
+        want_forms = {"kernel_launches": 1,
+                      "decode_launches": 0 if tiled else 1,
+                      "tile_launches": 1 if tiled else 0,
+                      "combine_launches": 0 if tiled else 1}
+        if not torch.isfinite(got.float()).all() or not ratio <= 1.0 \
+                or forms != want_forms:
+            raise AssertionError(f"generate K5 {name}: ratio {ratio}, max "
+                                 f"abs err {err}, launches {forms} (want "
+                                 f"{want_forms})")
+        if tol == BF16_TOL:
+            worst = max(worst, err)
+        checks.append(dict(name=name, max_abs_err=err, ratio=ratio,
+                           forms=forms))
+        print(f"generate K5 check ok: {name}: B {b} S {s} T {t} H {h}/{kv} "
+              f"offset {off} window {win} {'int8' if int8 else dtype}: "
+              f"max_abs_err={err:.3e} ratio {ratio:.3f} (tol {tol}), "
+              f"launches {forms}", flush=True)
+        del q, kn, vn, kb, vb, got, want
+
+    # planted faults: the kernel's output against the plain version over a
+    # cache written one slot late, and over a window one key too wide
+    bf16 = torch.bfloat16
+    for fault in ("a cache slot written at offset + 1",
+                  "the window off by one"):
+        win = GEN_FAULT_WINDOW if fault.startswith("the window") else None
+        q, kn, vn, kb, vb = gen_k5_inputs(8, 1, 64, 32, 32, False, bf16,
+                                          128, 300, dev)
+        kb2, vb2 = _clone_cache(kb), _clone_cache(vb)
+        got, kb, vb = G.cached_attention(q, kn, vn, kb, vb,
+                                         G.CachePlan(40, 8, 1, kb),
+                                         128 ** -0.5, window=win)
+        want = G.cached_attention_plain(q, kb, vb, 40, 128 ** -0.5, win)
+        if not k5_ratio(got, want, BF16_TOL) <= 1.0:
+            raise AssertionError(f"generate K5 fault probe: {fault}: the "
+                                 "kernel itself fails the check")
+        if win:
+            bad = G.cached_attention_plain(q, kb, vb, 40, 128 ** -0.5,
+                                           win + 1)
+        else:
+            idx = torch.tensor([41], device=dev)
+            kb2.index_copy_(1, idx, kn.to(kb2.dtype))
+            vb2.index_copy_(1, idx, vn.to(vb2.dtype))
+            bad = G.cached_attention_plain(q, kb2, vb2, 40, 128 ** -0.5)
+        ratio = k5_ratio(got, bad, BF16_TOL)
+        if not ratio > 1.0:
+            raise AssertionError(f"the generate K5 check passes a planted "
+                                 f"fault: {fault}: ratio {ratio}")
+        print(f"planted fault rejected: generate K5 {fault}: ratio "
+              f"{ratio:.2f}", flush=True)
+
+    # K5 at the decode step's shape, context in the middle of 513-639
+    b, h, d = GEN_BATCH, 32, 128
+    t = GEN_PROMPT + GEN_NEW
+    off = GEN_PROMPT + GEN_NEW // 2
+    q, kn, vn, kb, vb = gen_k5_inputs(b, 1, t, h, h, False, bf16, d, 400,
+                                      dev)
+    plan = G.CachePlan(off, b, 1, kb)
+    G.cached_attention(q, kn, vn, kb, vb, plan, d ** -0.5)
+    q2 = q.reshape(b, h, d)
+    kp, vp = (x.view(-1, 16, h, d) for x in (kb, vb))
+    ms = graph_ms(lambda: A.planned_attention(
+        q2, kp, vp, plan.page_table, plan.context_lens, plan.k5,
+        scale=d ** -0.5), iters=20)
+    plain_ms = cuda_ms(lambda: G.cached_attention_plain(
+        q, kb, vb, off, d ** -0.5), iters=5, warmup=1)
+    ctx = off + 1
+    qs = q.transpose(1, 2)
+    ks, vs = (x[:, :ctx].transpose(1, 2) for x in (kb, vb))
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, scale=d ** -0.5), iters=20)
+    # q read and out written once, every row's live K/V once, the page
+    # table and the per-row metadata; 4 D flops per (row, head, key)
+    nbytes = (2 * q.numel() * 2 + 2 * b * ctx * h * d * 2
+              + 4 * (b * (t // 16) + 4 * b))
+    flops = 4 * b * h * ctx * d
+    bound_ms, bound_by = bound(nbytes, flops)
+    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                  flops=flops, context=ctx, batch=b)
+    print(f"kernel time generate decode (B {b}, context {ctx}, H=KV {h}): "
+          f"K5 {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} "
+          "flop)", flush=True)
+    return worst, checks, timing
+
+
+def gen_program(model):
+    """The model's most recently used generate program: its static
+    buffers, its graphs and what its last call left (the beam's best
+    scores, the speculative rounds' acceptance)."""
+    return next(reversed(model._gen_cache.values()))
+
+
+def _gen_counts():
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.serving import attention as A
+    return {**A.stats, **{f"gen_{k}": v for k, v in G.stats.items()}}
+
+
+def _gen_reset():
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.serving import attention as A
+    A.reset_stats()
+    G.reset_stats()
+
+
+def gen_expected(forwards, on_card, fetches, captured=0):
+    """The counts of a generate call: ``forwards`` = [(layers, tokens a
+    row, times)], each K5 call through the tile form (bf16 pages, >= 2
+    tokens) or the split form and its combine; on the CPU the plain
+    version instead. Every forward after the first of a call is a graph
+    replay (``replays``)."""
+    want = dict.fromkeys(("kernel_launches", "decode_launches",
+                          "tile_launches", "combine_launches",
+                          "plain_calls", "gen_plain_calls"), 0)
+    for layers, s, times, tiled in forwards:
+        n = layers * times
+        if not on_card:
+            want["gen_plain_calls"] += n
+            continue
+        want["kernel_launches"] += n
+        if tiled and s >= 2:
+            want["tile_launches"] += n
+        else:
+            want["decode_launches"] += n
+            want["combine_launches"] += n
+    want["gen_host_fetches"] = fetches
+    want["gen_graphs_captured"] = captured
+    return want
+
+
+def gen_check_counts(what, want, replays):
+    got = _gen_counts()
+    got_sub = {k: got[k] for k in want}
+    if got_sub != want:
+        raise AssertionError(f"generate {what}: counts {got_sub}, want "
+                             f"{want}")
+    if got["gen_graph_replays"] != replays:
+        raise AssertionError(f"generate {what}: {got['gen_graph_replays']} "
+                             f"graph replays, want {replays}: a step ran "
+                             "outside its graph")
+    return got
+
+
+def gpt_dense_logits(model, ids):
+    """GPT's logits over ``ids [1, S]`` with plain float32 attention (the
+    dense reference of the generate checks)."""
+    import torch
+    from paddle_tpu_torch.nn.functional import gelu
+    from paddle_tpu_torch.ops.flash_attention import _attention_ref
+    gm = model.gpt
+    s = ids.shape[1]
+    x = gm.wte(ids) + gm.wpe(torch.arange(s, device=ids.device))[None]
+    for blk in gm.h:
+        at = blk.attn
+        qkv = at.qkv_proj(blk.ln_1(x)).reshape(1, s, 3, at.nh, at.hd)
+        q, k, v = qkv.unbind(dim=2)
+        out = _attention_ref(q.float(), k.float(), v.float(),
+                             causal=True).to(x.dtype)
+        x = x + at.out_proj(out.reshape(1, s, at.nh * at.hd))
+        x = x + blk.fc_out(gelu(blk.fc_in(blk.ln_2(x)), approximate=True))
+    return model.lm_head(gm.ln_f(x)).float()
+
+
+def dense_logits(model, seq):
+    """[len(seq), V] float32 logits of one dense forward (plain float32
+    attention) over the token row ``seq``."""
+    import torch
+    ids = torch.as_tensor(seq, device=model.device).long()[None]
+    with torch.inference_mode():
+        if hasattr(model, "gpt"):
+            return gpt_dense_logits(model, ids)[0]
+        return model.lm_head(model.llama(ids)[0]).float()
+
+
+def gen_dense_check(model, prompts, toks, margin, what, first_logits=None,
+                    adjust=None):
+    """Each row of a greedy generate result against one dense forward over
+    its prompt and its tokens but the last: the first token's prefill
+    logits within cosine COSINE_MIN of the dense ones (when given), and,
+    teacher-forced, each token the dense argmax (after ``adjust``, the
+    logit processors of the call) wherever the dense top-2 margin exceeds
+    ``margin``. Returns per-row readings and the dense logits."""
+    import numpy as np
+    import torch
+    rows, dense_all = [], []
+    for r, p in enumerate(prompts):
+        tk = np.asarray(toks[r])
+        dense = dense_logits(model, np.concatenate([p, tk[:-1]]))[
+            p.size - 1:]
+        if adjust is not None:
+            dense = adjust(dense, p, tk)
+        dense_all.append(dense)
+        top2 = dense.topk(2, dim=-1).values
+        mg = (top2[:, 0] - top2[:, 1]).cpu()
+        agree = dense.argmax(-1).cpu() == torch.as_tensor(tk).long()
+        firm = mg > margin
+        bad = (firm & ~agree).nonzero()[:, 0].tolist()
+        rd = dict(row=r, firm=int(firm.sum()), agree=int(agree.sum()),
+                  disagree_firm=bad)
+        if first_logits is not None:
+            got = first_logits[r].float()
+            cos = torch.nn.functional.cosine_similarity(got, dense[0],
+                                                        dim=0).item()
+            rd["cosine"] = cos
+            if not (cos >= COSINE_MIN and int(got.argmax()) == int(tk[0])):
+                raise AssertionError(
+                    f"generate {what} row {r}: first-token cosine {cos} "
+                    f"(>= {COSINE_MIN}) or its argmax {int(got.argmax())} "
+                    f"!= the first token {int(tk[0])}")
+        rows.append(rd)
+        if bad:
+            raise AssertionError(f"generate {what} row {r}: tokens {bad} "
+                                 "differ from the dense argmax past the "
+                                 f"margin {margin}")
+    cos = [r["cosine"] for r in rows if "cosine" in r]
+    print(f"generate dense check {what}: {len(rows)} rows, "
+          f"{sum(r['agree'] for r in rows)} of {sum(len(t) for t in toks)} "
+          f"tokens the dense argmax, {sum(r['firm'] for r in rows)} past "
+          f"the margin {margin}, none disagreeing there"
+          + (f"; first-token cosine min {min(cos):.6f}" if cos else ""),
+          flush=True)
+    return rows, dense_all
+
+
+def rp_adjust(rp, min_new, eos):
+    """The logit processors of a ``repetition_penalty`` / ``min_new_tokens``
+    call, applied to dense logits ``[N, V]`` row by row (the seen set is
+    the prompt and the tokens before each position)."""
+    import torch
+
+    def adjust(dense, p, tk):
+        out = dense.clone()
+        seen = torch.zeros(dense.shape[1], dtype=torch.bool,
+                           device=dense.device)
+        seen[torch.as_tensor(p, device=dense.device).long()] = True
+        for j in range(dense.shape[0]):
+            lg = out[j]
+            out[j] = torch.where(seen, torch.where(lg > 0, lg / rp, lg * rp),
+                                 lg)
+            if j + 1 <= min_new:
+                out[j, eos] = float("-inf")
+            seen[int(tk[j])] = True
+        return out
+    return adjust
+
+
+def first_divergence(a, b):
+    """Per row the first index where the token rows differ (None if
+    equal)."""
+    import numpy as np
+    out = []
+    for x, y in zip(np.asarray(a), np.asarray(b)):
+        d = np.nonzero(x != y)[0]
+        out.append(int(d[0]) if d.size else None)
+    return out
+
+
+def dense_score(dense, toks, eos, lenpen):
+    """A beam's score from dense logits: the summed log-probs of its tokens
+    up to and including the first ``eos``, over the GNMT penalty of that
+    length when ``lenpen``."""
+    import torch
+    lp = torch.log_softmax(dense, dim=-1)
+    n = len(toks)
+    for j, t_ in enumerate(toks):
+        if t_ == eos:
+            n = j + 1
+            break
+    idx = torch.as_tensor(toks[:n], device=dense.device).long()
+    score = lp[torch.arange(n, device=dense.device), idx].sum().item()
+    if lenpen:
+        score /= ((5.0 + n) / 6.0) ** lenpen
+    return score
+
+
+def dense_margins(model, prompts, toks):
+    """Per row the dense top-2 margin [new] at each of its tokens (one
+    dense forward over the prompt and the tokens but the last)."""
+    import numpy as np
+    out = []
+    for r, p in enumerate(prompts):
+        top = dense_logits(model, np.concatenate(
+            [p, np.asarray(toks[r])[:-1]]))[p.size - 1:].topk(2).values
+        out.append((top[:, 0] - top[:, 1]).cpu())
+    return out
+
+
+def short_round_ties(prog, margins, k, new, tie, what):
+    """The speculative rounds of a self-draft that stopped before ``k``
+    proposals. In each, the rows whose own proposal was rejected there
+    (their accepted count is the round's, the batch minimum) must sit
+    within ``tie`` of a tie in the dense logits at that token: the
+    draft's single-token steps and the verify's S = k+1 forward run
+    other kernels and round apart, which can flip only a near-tie.
+    ``margins``: :func:`dense_margins` of the call's tokens. Returns
+    [(token, accepted, rejecting rows, their margins)]."""
+    rows_acc = prog.accepted_rows[:len(prog.accepted)].cpu()
+    out, pos = [], 1
+    for r, m in enumerate(prog.accepted):
+        if m < k and pos + m < new:
+            rej = (rows_acc[r] == m).nonzero()[:, 0].tolist()
+            gaps = [float(margins[row][pos + m]) for row in rej]
+            if not rej or max(gaps) > tie:
+                raise AssertionError(
+                    f"generate speculative {what}: the round at token {pos} "
+                    f"stopped after {m} proposals; rows {rej} rejected "
+                    f"there at dense margins {gaps} (a tie is <= {tie})")
+            out.append((pos, m, rej, gaps))
+        pos += m + 1
+    return out
+
+
+def gen_timed(model, ids, smi, label, on_card, **kw):
+    """One generate configuration's readings: the prefill time (a call
+    with max_new_tokens=1, the second of two), the full call (the second
+    of two, so its graph is already captured), decode tokens/s over the
+    full call less the prefill, the decode step p50 over 16 single
+    replays of its graph, graphs captured and replayed, peak memory."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import generation as G
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    b = ids.shape[0]
+    new = kw.get("max_new_tokens")
+    times = {}
+    for key, n in (("prefill", 1), ("full", new)):
+        for _ in range(2):
+            sync()
+            replays = G.stats["graph_replays"]
+            t0 = time.perf_counter()
+            kw_n = {**kw, "max_new_tokens": n}
+            if "min_new_tokens" in kw:
+                kw_n["min_new_tokens"] = min(kw["min_new_tokens"], n)
+            out = model.generate(ids, **kw_n)
+            times[key] = time.perf_counter() - t0
+    replays = G.stats["graph_replays"] - replays
+    prog = gen_program(model)
+    step_s = []
+    if on_card:
+        prog.rewind()
+        for _ in range(16):
+            sync()
+            t0 = time.perf_counter()
+            prog.run("step", prog.step)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+    decode_s = times["full"] - times["prefill"]
+    rd = dict(card=smi, label=label, batch=b, prompt=ids.shape[1],
+              new_tokens=new, prefill_s=times["prefill"],
+              call_s=times["full"],
+              decode_tok_s=b * (new - 1) / decode_s if decode_s > 0 else None,
+              step_p50_s=(float(np.percentile(step_s, 50)) if step_s
+                          else None),
+              graphs_captured=len(prog.graphs), graph_replays=replays,
+              peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                            if on_card else None))
+    print(f"generate {label} [{smi}]: prefill (TTFT) {rd['prefill_s']:.4f} s "
+          f"(B {b} x {ids.shape[1]}), call {rd['call_s']:.4f} s for {new} "
+          f"tokens, decode {rd['decode_tok_s']:.1f} tok/s, step p50 "
+          f"{rd['step_p50_s']} s, graphs {rd['graphs_captured']} captured, "
+          f"{rd['graph_replays']} replayed in the call, peak memory "
+          f"{rd['peak_mem_gib']} GiB", flush=True)
+    return rd, out
+
+
+def profile_generate(model, n_steps, smi, label):
+    """``torch.profiler`` over ``n_steps`` replays of the greedy decode
+    step's graph (rewound to just after the prefill), beside the untraced
+    wall of ``n_steps`` replays just before, as ``profile_decode`` does."""
+    import torch
+    prog = gen_program(model)
+
+    def step():
+        prog.run("step", prog.step)
+
+    prog.rewind()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    prog.rewind()
+    what = (f"{label} generate decode step (B {GEN_BATCH}, ctx "
+            f"{GEN_PROMPT}-{GEN_PROMPT + n_steps + 1})")
+    out = trace_steps(step, n_steps, what, smi)
+    out["untraced_wall_ms"] = wall_ms
+    print(f"profile [{smi}]: {what}: untraced wall {wall_ms:.3f} ms, device "
+          f"busy {out['device_ms']:.3f} ms (idle "
+          f"{100 * (1 - out['device_ms'] / wall_ms):.1f} %), "
+          f"{out['kernels']:.0f} kernels", flush=True)
+    return out
+
+
+def gen_prompts(rng, b, s, vocab):
+    import numpy as np
+    return [rng.integers(3, vocab, s).astype(np.int32) for _ in range(b)]
+
+
+def generate_llama(cfg, smi, dev=None, profile_steps=0, batch=GEN_BATCH,
+                   prompt=GEN_PROMPT, new=GEN_NEW, beam=(GEN_BEAM_BATCH,
+                   GEN_BEAMS, GEN_BEAM_NEW), draft_layers=2):
+    """generate() over LLaMA-2-7B at full width and depth: greedy, sampled
+    (twice with one seed, once with another), repetition penalty +
+    min_new_tokens + eos, the int8 cache, beam search (with and without
+    the length penalty and eos), speculative decoding with a self-draft
+    and with a ``draft_layers``-layer draft; exact counts and the dense,
+    beam-score and speculative checks."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models import generation as G
+
+    on_card = torch.device(dev or "cuda").type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model.eval()
+    rng = np.random.default_rng(10)
+    prompts = gen_prompts(rng, batch, prompt, cfg.vocab_size)
+    ids = torch.as_tensor(np.stack(prompts), device=model.device)
+    res = {}
+
+    def counted(what, fn, forwards, fetches, replays, captured):
+        _gen_reset()
+        out = fn()
+        got = gen_check_counts(what, gen_expected(forwards, on_card, fetches,
+                                                  captured if on_card else 0),
+                               replays if on_card else 0)
+        print(f"generate {what}: counts ok {got}", flush=True)
+        return out, got
+
+    tiled = cfg.dtype == "bfloat16"
+    vanilla = [(L, prompt, 1, tiled), (L, 1, new - 1, tiled)]
+    # greedy: the first call captures the step's graph, the second replays
+    greedy, counts = counted(
+        "greedy (first call)", lambda: model.generate(ids, new), vanilla,
+        1, new - 1, 1)
+    greedy2, counts2 = counted(
+        "greedy", lambda: model.generate(ids, new), vanilla, 1, new - 1, 0)
+    if not torch.equal(greedy, greedy2):
+        raise AssertionError("generate greedy: two calls differ")
+    res["greedy_counts"] = counts2
+    caches = model._init_caches(batch, prompt + new)
+    with torch.inference_mode():
+        first = model._forward_cached(ids, caches, 0)[0][:, -1].float()
+    del caches
+    res["greedy_dense"], _ = gen_dense_check(model, prompts, greedy.numpy(),
+                                             MARGIN, "greedy", first)
+    res["greedy"], _ = gen_timed(model, ids, smi, "llama2_7b greedy",
+                                 on_card, max_new_tokens=new)
+    if on_card:
+        res["profile"] = profile_generate(model, max(profile_steps,
+                                                     PROFILE_STEPS), smi,
+                                          "llama2_7b")
+
+    samp = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9)
+    s1, _ = counted("sampled seed 1", lambda: model.generate(
+        ids, new, seed=1, **samp), vanilla, 1, new - 1, 1)
+    s1b, _ = counted("sampled seed 1 again", lambda: model.generate(
+        ids, new, seed=1, **samp), vanilla, 1, new - 1, 0)
+    s2, _ = counted("sampled seed 2", lambda: model.generate(
+        ids, new, seed=2, **samp), vanilla, 1, new - 1, 0)
+    if not torch.equal(s1, s1b) or torch.equal(s1, s2):
+        raise AssertionError("generate sampling: one seed twice must give "
+                             "equal tokens and another seed others")
+    res["sampled_differ_frac"] = float((s1 != s2).float().mean())
+    res["sampled"], _ = gen_timed(model, ids, smi, "llama2_7b sampled",
+                                  on_card, max_new_tokens=new, seed=1,
+                                  **samp)
+    print(f"generate sampled: seed 1 twice equal, seed 2 differs in "
+          f"{100 * res['sampled_differ_frac']:.1f} % of the tokens",
+          flush=True)
+
+    min_new = min(16, new // 2)
+    rpkw = dict(repetition_penalty=1.2, min_new_tokens=min_new,
+                eos_token_id=GEN_EOS)
+    rp, _ = counted("repetition penalty + min_new_tokens + eos",
+                    lambda: model.generate(ids, new, **rpkw), vanilla, 1,
+                    new - 1, 1)
+    rpn = rp.numpy()
+    for row in rpn:
+        hit = np.nonzero(row == GEN_EOS)[0]
+        if hit.size and (hit[0] < min_new
+                         or (row[hit[0]:] != GEN_EOS).any()):
+            raise AssertionError(f"generate rp: eos misplaced in {row}")
+    res["rp_dense"], _ = gen_dense_check(
+        model, prompts, rpn, MARGIN, "repetition penalty + min_new_tokens",
+        adjust=rp_adjust(1.2, min_new, GEN_EOS))
+    res["rp"], _ = gen_timed(model, ids, smi, "llama2_7b rp+min_new+eos",
+                             on_card, max_new_tokens=new, **rpkw)
+
+    q8, _ = counted("int8 cache", lambda: model.generate(
+        ids, new, cache_dtype="int8"), vanilla, 1, new - 1, 1)
+    res["int8_dense"], _ = gen_dense_check(model, prompts, q8.numpy(),
+                                           INT8_MARGIN, "int8 cache")
+    res["int8"], _ = gen_timed(model, ids, smi, "llama2_7b int8 cache",
+                               on_card, max_new_tokens=new,
+                               cache_dtype="int8")
+    res["int8_vs_bf16_equal_frac"] = float((q8 == greedy).float().mean())
+
+    # beam search on the first rows, with greedy on the same rows
+    bb, kk, bn = beam
+    bids = ids[:bb]
+    bprompts = prompts[:bb]
+    g_b, _ = counted("greedy on the beam rows", lambda: model.generate(
+        bids, bn), [(L, prompt, 1, tiled), (L, 1, bn - 1, tiled)], 1, bn - 1,
+        1)
+    beam_fw = [(L, prompt, 1, tiled), (L, 1, bn - 1, tiled)]
+    beams = {}
+    for lp, eos in ((0.6, GEN_EOS), (0.0, None)):
+        what = f"beam {bb} x {kk} length_penalty {lp} eos {eos}"
+        out, _ = counted(what, lambda: model.generate(
+            bids, bn, num_beams=kk, length_penalty=lp, eos_token_id=eos),
+            beam_fw, 1, bn - 1, 1)
+        scores = gen_program(model).best_scores.float().cpu().tolist()
+        dense = [dense_logits(model, np.concatenate(
+            [p, out[r].numpy()[:-1]]))[p.size - 1:]
+            for r, p in enumerate(bprompts)]
+        rescored = [dense_score(d_, out[r].tolist(), -1 if eos is None
+                                else eos, lp) for r, d_ in enumerate(dense)]
+        tol = BEAM_TOL_PER_TOKEN * bn
+        diffs = [abs(a - b_) for a, b_ in zip(scores, rescored)]
+        if max(diffs) > tol:
+            raise AssertionError(f"generate {what}: reported scores {scores}"
+                                 f" vs dense re-scores {rescored} (tol {tol})")
+        beams[lp] = dict(scores=scores, rescored=rescored, out=out)
+        print(f"generate {what}: best scores {scores}, dense re-scores "
+              f"{rescored} (|diff| <= {max(diffs):.4f}, tol {tol})",
+              flush=True)
+    g_dense = [dense_logits(model, np.concatenate(
+        [p, g_b[r].numpy()[:-1]]))[p.size - 1:] for r, p in enumerate(
+            bprompts)]
+    g_scores = [dense_score(d_, g_b[r].tolist(), -1, 0.0)
+                for r, d_ in enumerate(g_dense)]
+    tol = BEAM_TOL_PER_TOKEN * bn
+    for r, (bs_, gs_) in enumerate(zip(beams[0.0]["rescored"], g_scores)):
+        if bs_ < gs_ - tol:
+            raise AssertionError(f"generate beam row {r}: best beam's score "
+                                 f"{bs_} below greedy's {gs_} - {tol}")
+    res["beam"] = dict(greedy_scores=g_scores, **{
+        f"lenpen_{k}": dict(scores=v["scores"], rescored=v["rescored"])
+        for k, v in beams.items()})
+    print(f"generate beam: no length penalty, no eos: best beam (dense "
+          f"re-score) {beams[0.0]['rescored']} >= greedy {g_scores} - {tol}",
+          flush=True)
+    res["beam_timed"], _ = gen_timed(
+        model, bids, smi, f"llama2_7b beam {bb}x{kk}", on_card,
+        max_new_tokens=bn, num_beams=kk, length_penalty=0.6,
+        eos_token_id=GEN_EOS)
+
+    # speculative decoding: a self-draft, then a small draft of the width
+    k = GEN_SPEC_K
+    rounds_full = -(-(new - 1) // (k + 1))
+    dense_greedy = [dense_logits(model, np.concatenate(
+        [p, greedy[r].numpy()[:-1]]))[p.size - 1:]
+        for r, p in enumerate(prompts)]
+    draft_cfg = type(cfg)(**{**cfg.__dict__, "num_hidden_layers":
+                             draft_layers})
+    draft = LlamaForCausalLM(draft_cfg, device=dev, seed=1)
+    draft.eval()
+    for name, dm in (("self-draft", model), (f"{draft_layers}-layer draft",
+                                             draft)):
+        Ld = dm.cfg.num_hidden_layers
+        _gen_reset()
+        t0 = time.perf_counter()
+        out = model.generate(ids, new, draft_model=dm, speculative_k=k)
+        call_s = time.perf_counter() - t0
+        rounds = model._last_spec_rounds
+        got = _gen_counts()
+        fw = [(L, prompt, 1, tiled), (L, k + 1, rounds, tiled),
+              (Ld, prompt, 1, tiled), (Ld, 1, (k + 1) * rounds, tiled)]
+        want = gen_expected(fw, on_card, rounds + 1, 1 if on_card else 0)
+        if {k_: got[k_] for k_ in want} != want or \
+                got["gen_graph_replays"] != (rounds if on_card else 0):
+            raise AssertionError(f"generate speculative {name}: counts "
+                                 f"{got}, want {want} and {rounds} replays")
+        div = first_divergence(out.numpy(), greedy.numpy())
+        for r, j in enumerate(div):
+            if j is not None:
+                top2 = dense_greedy[r][j].topk(2).values
+                gap = float(top2[0] - top2[1])
+                if gap > MARGIN:
+                    raise AssertionError(
+                        f"generate speculative {name} row {r}: departs from "
+                        f"vanilla greedy at token {j}, dense margin {gap}")
+        sd, _ = gen_dense_check(model, prompts, out.numpy(), MARGIN,
+                                f"speculative {name}")
+        prog = gen_program(model)
+        spec = dict(rounds=rounds, rounds_full=rounds_full, call_s=call_s,
+                    counts=got, diverge=div, dense=sd,
+                    accepted=prog.accepted)
+        if dm is model:
+            # a self-draft accepts every proposal but where the draft's
+            # and the verify's kernels round a near-tie apart
+            spec["short_rounds"] = short_round_ties(
+                prog, dense_margins(model, prompts, out.numpy()), k, new,
+                MARGIN, f"{name} (bf16)")
+        res[f"spec_{name}"] = {k_: v for k_, v in spec.items()
+                               if k_ != "counts"}
+        print(f"generate speculative {name} (k {k}): {rounds} rounds "
+              f"(full acceptance {rounds_full}), accepted a round "
+              f"{prog.accepted}, {call_s:.3f} s for {new} "
+              f"tokens x {batch} rows ({batch * (new - 1) / call_s:.1f} "
+              f"tok/s with the prefill), departures from vanilla greedy "
+              f"{div}; K5 {got['kernel_launches']} launches (tile "
+              f"{got['tile_launches']}, split {got['decode_launches']}), "
+              f"{got['gen_host_fetches']} host fetches, "
+              f"{got['gen_graph_replays']} replays"
+              + (f"; short rounds (token, accepted, rejecting rows, their "
+                 f"dense margins) {spec['short_rounds']}"
+                 if "short_rounds" in spec else ""), flush=True)
+    del draft
+    res["counts"] = counts2
+    return res
+
+
+def generate_spec_f32(cfg, smi, dev=None, batch=GEN_BATCH, prompt=GEN_PROMPT,
+                      new=GEN_NEW, k=GEN_SPEC_K):
+    """Speculative decoding with a self-draft over LLaMA-2-7B in float32
+    at full width and depth, where the draft's single-token steps and the
+    verify's S=k+1 forward differ only by float32 summation order: the
+    tokens must be vanilla greedy's and the rounds ceil((new - 1) / (k +
+    1)), a departure or a row's rejection allowed only at a tie within
+    F32_TIE of the dense logits (K5's split form for every token: float32
+    queries)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    on_card = torch.device(dev or "cuda").type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model.eval()
+    prompts = gen_prompts(np.random.default_rng(12), batch, prompt,
+                          cfg.vocab_size)
+    ids = torch.as_tensor(np.stack(prompts), device=model.device)
+    greedy = model.generate(ids, new)
+    _gen_reset()
+    t0 = time.perf_counter()
+    out = model.generate(ids, new, draft_model=model, speculative_k=k)
+    call_s = time.perf_counter() - t0
+    prog = gen_program(model)
+    rounds, accepted = model._last_spec_rounds, prog.accepted
+    fw = [(L, prompt, 2, False), (L, k + 1, rounds, False),
+          (L, 1, (k + 1) * rounds, False)]
+    gen_check_counts("speculative self-draft float32", gen_expected(
+        fw, on_card, rounds + 1, 1 if on_card else 0),
+        rounds if on_card else 0)
+    rounds_full = -(-(new - 1) // (k + 1))
+    div = first_divergence(out.numpy(), greedy.numpy())
+    ties = []
+    if any(j is not None for j in div):
+        mg = dense_margins(model, prompts, greedy.numpy())
+        for r, j in enumerate(div):
+            if j is not None and float(mg[r][j]) > F32_TIE:
+                raise AssertionError(
+                    f"generate speculative float32 row {r}: departs from "
+                    f"vanilla greedy at token {j}, dense margin "
+                    f"{float(mg[r][j])} > {F32_TIE}")
+            if j is not None:
+                ties.append(("diverge", r, j))
+    if rounds != rounds_full:
+        ties += [("short round", *t_) for t_ in short_round_ties(
+            prog, dense_margins(model, prompts, out.numpy()), k, new,
+            F32_TIE, "self-draft float32")]
+    res = dict(rounds=rounds, rounds_full=rounds_full, accepted=accepted,
+               call_s=call_s, diverge=div, ties=ties,
+               peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if on_card else None))
+    print(f"generate speculative self-draft float32 [{smi}] (k {k}): "
+          f"{rounds} rounds (full acceptance {rounds_full}), accepted "
+          f"{accepted}; tokens equal to vanilla greedy: "
+          f"{all(j is None for j in div)} (ties {ties}); {call_s:.3f} s",
+          flush=True)
+    return res
+
+
+def generate_other(cfg, smi, label, dev=None, shape=GEN_MISTRAL):
+    """Greedy generate() over one more model (Mistral-7B past its window,
+    GPT-3 1.3B): exact counts, the dense checks, the readings."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM, LlamaForCausalLM
+
+    on_card = torch.device(dev or "cuda").type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    b, s, new = shape
+    gpt = not hasattr(cfg, "rope_theta")
+    model = (GPTForCausalLM if gpt else LlamaForCausalLM)(cfg, device=dev,
+                                                          seed=0)
+    model.eval()
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(11)
+    prompts = gen_prompts(rng, b, s, cfg.vocab_size)
+    ids = torch.as_tensor(np.stack(prompts), device=model.device)
+    tiled = cfg.dtype == "bfloat16"
+    fw = [(L, s, 1, tiled), (L, 1, new - 1, tiled)]
+    res = {}
+    for i in range(2):
+        _gen_reset()
+        out = model.generate(ids, new)
+        got = gen_check_counts(f"{label} greedy", gen_expected(
+            fw, on_card, 1, (1 - i) if on_card else 0),
+            (new - 1) if on_card else 0)
+    res["counts"] = got
+    caches = model._init_caches(b, s + new)
+    with torch.inference_mode():
+        first = model._forward_cached(ids, caches, 0)[0][:, -1].float()
+    del caches
+    res["dense"], _ = gen_dense_check(model, prompts, out.numpy(), MARGIN,
+                                      f"{label} greedy", first)
+    res["timed"], _ = gen_timed(model, ids, smi, f"{label} greedy", on_card,
+                                max_new_tokens=new)
+    print(f"generate {label}: counts ok {got}", flush=True)
+    return res
+
+
+def generate_phase(smi, dev=None, profile_steps=0):
+    """The ``generate`` phase: K5 through ``cached_attention`` at
+    generate's shapes against its plain version, then LLaMA-2-7B,
+    Mistral-7B and GPT-3 1.3B at full width and depth, bf16, random
+    weights."""
+    from paddle_tpu_torch.models import GPTConfig, LlamaConfig
+    res = {"k5": gen_kernel_checks(dev or "cuda")}
+    res["llama"] = generate_llama(LlamaConfig.llama2_7b(
+        dtype="bfloat16", use_flash_attention=False), smi, dev,
+        profile_steps)
+    gc.collect()
+    res["spec_f32"] = generate_spec_f32(LlamaConfig.llama2_7b(
+        dtype="float32", use_flash_attention=False), smi, dev)
+    gc.collect()
+    res["mistral"] = generate_other(LlamaConfig.mistral_7b(
+        dtype="bfloat16", use_flash_attention=False), smi, "mistral_7b", dev,
+        GEN_MISTRAL)
+    gc.collect()
+    res["gpt"] = generate_other(GPTConfig.gpt3_1_3b(
+        dtype="bfloat16", hidden_dropout_prob=0.0,
+        attention_dropout_prob=0.0), smi, "gpt3_1_3b", dev, GEN_GPT)
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", metavar="PATH",
@@ -3376,6 +4270,9 @@ def main(argv=None):
             profile_steps=args.profile, label="mistral_7b", ragged=True,
             prompt_lens=RAGGED_PROMPT_LENS, sampled=RAGGED_SAMPLED,
             num_pages=RAGGED_POOL_PAGES, max_seq_len=RAGGED_MAX_SEQ)
+    if "generate" in phases:
+        res["generate"] = phase("generate", generate_phase, smi,
+                                profile_steps=args.profile)
 
     kernels = kernel_rows(res)
     if args.out:
@@ -3394,7 +4291,8 @@ def main(argv=None):
 
 
 PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
-          "mistral_path", "gpt", "gpt_path", "fit", "serve", "ragged")
+          "mistral_path", "gpt", "gpt_path", "fit", "serve", "ragged",
+          "generate")
 
 
 def kernel_rows(res):
@@ -3439,6 +4337,23 @@ def kernel_rows(res):
             max_abs_err=worst_err, ms=rg["ms"], plain_ms=rg["plain_ms"],
             bound_ms=rg["bound_ms"], bound_by=rg["bound_by"],
             library_ms=rg["library_ms"]))
+    gen = res.get("generate")
+    if gen:
+        # cached_attention's K5 call at generate's LLaMA-2-7B decode shape:
+        # launches from the greedy call's counted run (its prefill through
+        # the tile form, its decode steps through the split form)
+        worst_err, _, t = gen["k5"]
+        counts = gen["llama"]["counts"]
+        rows.append(dict(
+            name="ragged_paged_attention_generate_decode", route="cuda",
+            source="paddle_tpu_torch/serving/csrc/ragged_paged_attention.cu",
+            replaces="paddle_tpu/serving/attention.py:289",
+            launches=counts["kernel_launches"],
+            form_launches={k: counts[k] for k in (
+                "tile_launches", "decode_launches", "combine_launches")},
+            max_abs_err=worst_err,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}))
     launches = res.get("train", {}).get("launches", {})
     # the bf16 kernels at head_dim 64 and 128
     fwd_src = "paddle_tpu_torch/ops/csrc/fa_fwd_sm90.cuh"

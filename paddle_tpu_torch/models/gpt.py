@@ -22,8 +22,14 @@ device-to-host copy). The same seed and inputs thus give the same run.
 :func:`..distributed.fleet.recompute`, which replays the block's dropout
 masks from the model's generator in backward.
 
-Not ported, and refused: ``tensor_parallel``, the cached decode path
-(``forward_cached`` / generation) and the pipeline form
+``generate()`` (``models/generation.py``) runs the ``forward_cached``
+path: fused qkv, no RoPE, learned positions at ``offset + arange(S)``,
+attention through ``cached_attention`` (K5 on the card). The cache is
+kept in the model's dtype: the JAX package builds GPT's cache in float32
+even for a bf16 model, but a bf16 K/V widened to float32 is exact, so a
+bf16 cache holds the same values (and K5's tile form takes bf16 pages).
+
+Not ported, and refused: ``tensor_parallel`` and the pipeline form
 ``GPTForCausalLMPipe``.
 """
 from __future__ import annotations
@@ -38,6 +44,8 @@ from ..distributed.fleet.recompute import recompute
 from ..nn import Dropout, LayerNorm, Linear
 from ..nn.functional import (flashmask_attention, gelu,
                              scaled_dot_product_attention)
+from .generation import (CachePlan, GenerationMixin, cached_attention,
+                         init_static_caches)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "GPTForCausalLMPipe", "count_params",
@@ -122,6 +130,19 @@ class GPTAttention(nn.Module):
                 dropout_p=self.drop, training=self.training, seed=seed)
         return self.out_proj(out.reshape(b, s, self.nh * self.hd))
 
+    def forward_cached(self, x, k_buf, v_buf, plan):
+        """The static-cache path of ``generate``: fused qkv, no RoPE,
+        :func:`~.generation.cached_attention` under the forward's
+        :class:`~.generation.CachePlan`, out_proj."""
+        b, s = x.shape[0], x.shape[1]
+        qkv = self.qkv_proj(x).reshape(b, s, 3, self.nh, self.hd)
+        q, k, v = qkv.unbind(dim=2)
+        out, k_buf, v_buf = cached_attention(
+            q.contiguous(), k, v, k_buf, v_buf, plan,
+            1.0 / (self.hd ** 0.5))
+        return (self.out_proj(out.reshape(b, s, self.nh * self.hd)), k_buf,
+                v_buf)
+
 
 class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, *, generator, device=None,
@@ -150,6 +171,13 @@ class GPTBlock(nn.Module):
             startend_row_indices=startend_row_indices, seed=attn_seed))
         return x + self.drop(self.fc_out(gelu(self.fc_in(self.ln_2(x)),
                                               approximate=True)))
+
+    def forward_cached(self, x, k_buf, v_buf, plan):
+        a, k_buf, v_buf = self.attn.forward_cached(self.ln_1(x), k_buf,
+                                                   v_buf, plan)
+        x = x + a
+        return (x + self.fc_out(gelu(self.fc_in(self.ln_2(x)),
+                                     approximate=True)), k_buf, v_buf)
 
 
 class GPTModel(nn.Module):
@@ -195,13 +223,20 @@ class GPTModel(nn.Module):
                       attn_seed=seed)
         return self.ln_f(x)
 
-    def forward_cached(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GPT's cached decode (forward_cached, generation) is not ported "
-            "to paddle_tpu_torch yet")
+    def forward_cached(self, input_ids, caches, offset):
+        """caches: per block a ``(k_buf, v_buf)`` pair; positions
+        ``offset + arange(S)`` index the learned table."""
+        b, s = input_ids.shape
+        plan = CachePlan(offset, b, s, caches[0][0])
+        x = self.wte(input_ids) + self.wpe(plan.idx)[None]
+        new = []
+        for blk, (kb, vb) in zip(self.h, caches):
+            x, kb, vb = blk.forward_cached(x, kb, vb, plan)
+            new.append((kb, vb))
+        return self.ln_f(x), new
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(nn.Module, GenerationMixin):
     """``GPTForCausalLM(cfg, device=None, seed=0)``: parameters are made
     on ``device`` (the card unless ``device="cpu"``) in ``cfg.dtype``;
     ``seed`` seeds the model's generator, which draws the weights and then
@@ -243,10 +278,18 @@ class GPTForCausalLM(nn.Module):
             input_ids, position_ids, attn_mask,
             attn_mask_startend_row_indices=attn_mask_startend_row_indices))
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GPT generation (the static-cache decode) is not ported to "
-            "paddle_tpu_torch yet")
+    # -- static-cache generation hooks (GenerationMixin) -------------------
+    def _init_caches(self, batch, total_len, cache_dtype=None):
+        cfg = self.cfg
+        nh = cfg.num_attention_heads
+        return init_static_caches(cfg.num_hidden_layers, batch, total_len,
+                                  nh, cfg.hidden_size // nh, cache_dtype,
+                                  resolve_dtype(cfg.dtype),
+                                  device=self.device)
+
+    def _forward_cached(self, input_ids, caches, offset):
+        h, caches = self.gpt.forward_cached(input_ids, caches, offset)
+        return self.lm_head(h), caches
 
 
 def GPTForCausalLMPipe(cfg: GPTConfig, *args, **kwargs):

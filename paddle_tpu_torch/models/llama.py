@@ -18,6 +18,9 @@ Module names mirror the JAX package (``llama.layers.0.self_attn.q_proj``
   dense reference the serving engine's paged path is held against.
 - Serving runs the trunk through ``serving/engine.py::_paged_forward``,
   which reuses these modules' weights.
+- ``generate()`` (``models/generation.py``) runs the ``forward_cached``
+  path: a static K/V cache per layer, attention through
+  ``cached_attention`` (K5 on the card), the window included.
 
 - ``recompute`` (training only): ``recompute_granularity="full"`` runs
   each decoder layer, ``"core_attn"`` each layer's attention (its
@@ -44,6 +47,8 @@ from ..nn.functional import (flashmask_attention,
                              fused_rotary_position_embedding,
                              scaled_dot_product_attention, swiglu)
 from ..ops.flash_attention import _attention_ref
+from .generation import (CachePlan, GenerationMixin, cached_attention,
+                         init_static_caches)
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP",
            "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
@@ -188,6 +193,25 @@ class LlamaAttention(nn.Module):
                                  mask=mask, causal=True).to(x.dtype)
         return self.o_proj(out.reshape(b, s, nh * hd))
 
+    def forward_cached(self, x, k_buf, v_buf, plan):
+        """The static-cache path of ``generate`` (``models/generation.py``):
+        q/k/v, RoPE at ``offset + arange(S)`` (the forward's
+        :class:`~.generation.CachePlan` ``idx``, a device tensor),
+        :func:`~.generation.cached_attention` with the window, o_proj.
+        Returns ``(out, k_buf, v_buf)``."""
+        b, s, _ = x.shape
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        q = self.q_proj(x).reshape(b, s, nh, hd)
+        k = self.k_proj(x).reshape(b, s, nkv, hd)
+        v = self.v_proj(x).reshape(b, s, nkv, hd)
+        q, k = fused_rotary_position_embedding(
+            q, k, position_ids=plan.idx[None].expand(b, s),
+            rotary_emb_base=self.cfg.rope_theta)
+        out, k_buf, v_buf = cached_attention(
+            q, k, v, k_buf, v_buf, plan, 1.0 / (hd ** 0.5),
+            window=self.cfg.sliding_window or None)
+        return self.o_proj(out.reshape(b, s, nh * hd)), k_buf, v_buf
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
@@ -233,6 +257,12 @@ class LlamaDecoderLayer(nn.Module):
         return recompute(self._block, x, position_ids, attn_mask,
                          startend_row_indices)
 
+    def forward_cached(self, x, k_buf, v_buf, plan):
+        a, k_buf, v_buf = self.self_attn.forward_cached(
+            self.input_layernorm(x), k_buf, v_buf, plan)
+        h = x + a
+        return h + self.mlp(self.post_attention_layernorm(h)), k_buf, v_buf
+
 
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
@@ -259,14 +289,29 @@ class LlamaModel(nn.Module):
                       attn_mask_startend_row_indices)
         return self.norm(x)
 
+    def forward_cached(self, input_ids, caches, offset):
+        """caches: per layer a ``(k_buf, v_buf)`` pair; the forward's
+        :class:`~.generation.CachePlan` is built once, before the
+        layers."""
+        b, s = input_ids.shape
+        plan = CachePlan(offset, b, s, caches[0][0])
+        x = self.embed_tokens(input_ids)
+        new = []
+        for layer, (kb, vb) in zip(self.layers, caches):
+            x, kb, vb = layer.forward_cached(x, kb, vb, plan)
+            new.append((kb, vb))
+        return self.norm(x), new
 
-class LlamaForCausalLM(nn.Module):
+
+class LlamaForCausalLM(nn.Module, GenerationMixin):
     """``LlamaForCausalLM(cfg, device=None, seed=0)``: parameters are
     made on ``device`` (the card unless ``device="cpu"``) in
     ``cfg.dtype``; every Linear and Embedding weight is drawn from
-    N(0, 0.02) by a ``torch.Generator`` seeded with ``seed``, the norms
-    start at ones. Real weights arrive through ``load_state_dict``
-    (see ``models/convert.py``)."""
+    N(0, 0.02) by the model's ``generator``, a ``torch.Generator`` seeded
+    with ``seed`` (which later draws ``generate``'s seed when none is
+    given), the norms start at ones. Real weights arrive through
+    ``load_state_dict`` (see ``models/convert.py``). ``generate()`` comes
+    from :class:`~.generation.GenerationMixin`."""
 
     def __init__(self, cfg: LlamaConfig, *, device=None, seed=0):
         super().__init__()
@@ -276,7 +321,8 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(cfg, device=dev, dtype=dtype)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                               device=dev, dtype=dtype)
-        self.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self.init_weights(self.generator)
         if cfg.tie_word_embeddings:
             # nn.Linear's [out, in] = [vocab, hidden] is the embedding's
             # own layout, so the head shares the Parameter as is
@@ -302,6 +348,19 @@ class LlamaForCausalLM(nn.Module):
             h._fused_hidden = True
             return h
         return self.lm_head(h)
+
+    # -- static-cache generation hooks (GenerationMixin) -------------------
+    def _init_caches(self, batch, total_len, cache_dtype=None):
+        cfg = self.cfg
+        nkv = cfg.num_key_value_heads or cfg.num_attention_heads
+        return init_static_caches(
+            cfg.num_hidden_layers, batch, total_len, nkv,
+            cfg.hidden_size // cfg.num_attention_heads, cache_dtype,
+            resolve_dtype(cfg.dtype), device=self.device)
+
+    def _forward_cached(self, input_ids, caches, offset):
+        h, caches = self.llama.forward_cached(input_ids, caches, offset)
+        return self.lm_head(h), caches
 
 
 class LlamaPretrainingCriterion(nn.Module):

@@ -25,7 +25,7 @@ import torch
 
 from ..ops.fa_kernel import _mul32
 
-__all__ = ["fused_sample", "lane_noise"]
+__all__ = ["fused_sample", "lane_noise", "lane_uniform"]
 
 _M32 = 0xFFFFFFFF
 
@@ -39,23 +39,28 @@ def _fmix32(x):
     return x ^ (x >> 16)
 
 
-def lane_noise(seeds, steps, vocab):
-    """Standard Gumbel noise ``[B, V]`` float32 on ``seeds``' device. Lane
-    ``i``'s key is ``fmix32(fmix32(seed * 0x9E3779B1) ^ step *
-    0x85EBCA77)``; entry ``v`` hashes ``key ^ v * 0xC2B2AE3D`` with two
-    rounds of fmix32 (the counter hash of ``ops/fa_kernel.keep_scale``),
-    takes the top 24 bits as a uniform ``u = (bits + 0.5) / 2**24`` in
-    (0, 1), and returns ``-log(-log(u))``. Each row depends on its own
-    ``(seed, step)`` alone."""
+def lane_uniform(seeds, steps, n):
+    """Uniforms ``[B, n]`` float32 in (0, 1) on ``seeds``' device, a pure
+    function of each lane's ``(seed, step)`` and the column. Lane ``i``'s
+    key is ``fmix32(fmix32(seed * 0x9E3779B1) ^ step * 0x85EBCA77)``;
+    column ``v`` hashes ``key ^ v * 0xC2B2AE3D`` with two rounds of fmix32
+    (the counter hash of ``ops/fa_kernel.keep_scale``) and takes the top
+    24 bits as ``u = (bits + 0.5) / 2**24``."""
     seed = seeds.to(torch.int64) & _M32
     step = steps.to(torch.int64) & _M32
     key = _fmix32(_fmix32(_mul32(seed, 0x9E3779B1)) ^ _mul32(step,
                                                              0x85EBCA77))
-    col = _mul32(torch.arange(vocab, dtype=torch.int64,
-                              device=seeds.device), 0xC2B2AE3D)
+    col = _mul32(torch.arange(n, dtype=torch.int64, device=seeds.device),
+                 0xC2B2AE3D)
     x = _fmix32(_fmix32(key[:, None] ^ col[None, :]))
-    u = ((x >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
-    return -torch.log(-torch.log(u))
+    return ((x >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+
+
+def lane_noise(seeds, steps, vocab):
+    """Standard Gumbel noise ``[B, V]`` float32 on ``seeds``' device:
+    ``-log(-log(u))`` of :func:`lane_uniform`'s ``u``. Each row depends on
+    its own ``(seed, step)`` alone."""
+    return -torch.log(-torch.log(lane_uniform(seeds, steps, vocab)))
 
 
 def _filter_top_k(scaled, top_k):
