@@ -98,9 +98,35 @@ Phases, each of which passes or ends the script with a non-zero code:
    model's FLOPs only) and peak memory. Then 2 layers at hidden 1024
    (``master_grad``, ``L1Decay``): 3 steps, ``Model.save``, a fresh
    ``Model.load``, 3 more equal 6 uninterrupted steps bit for bit; and
-   2 layers at full width, LLaMA (recompute full and core_attn) and GPT
-   (dropout 0.1): losses and every gradient bit-equal to recompute off.
-12. ``serve``: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
+   2 layers at full width, LLaMA (recompute full, core_attn, full_attn
+   and offload) and GPT (dropout 0.1): losses and every gradient
+   bit-equal to recompute off.
+12. ``full_attn``: the ``fit`` run with ``recompute_granularity=
+   "full_attn"``: each layer's attention output tagged
+   (``mark_saveable``), its ``out`` and ``lse`` kept for backward, so K1
+   = 20 x steps (``fit``: 2 x), K2 = K3 = 20 x steps, no plain call; the
+   losses equal ``fit``'s step for step; tokens/s, step p50, MFU and the
+   peak against ``fit``'s and the stash (out bf16 + lse a layer).
+13. ``offload``: ``fit`` at 8 layers with full recompute and with
+   ``recompute(offload=True)`` (the matrix products' outputs kept): the
+   losses equal, K1 = 2 x 8 x steps in both; peak and tokens/s of each.
+14. ``optimizers``: LLaMA-2-7B's width at 8 layers, batch 4 x 2048, O2
+   (masters where the optimizer takes ``multi_precision``), clip 1.0:
+   SGD, Momentum (Nesterov), Adagrad, RMSProp (centered, momentum),
+   Adamax, Adadelta, Lamb, NAdam, RAdam, Rprop and ASGD each 3
+   ``train_batch`` steps from the same weights, one ``torch._foreach_*``
+   pass a step and no leaf-rule step, finite losses; on a fourth
+   batch's grads the foreach pass against the leaf rule on copies of
+   the first layer's leaves at lr 1e-2 (bit-equal; Lamb within 1e-3 of
+   the step), and a skipped update that the check must reject; the
+   step's time (CUDA events)
+   beside K4's AdamW at the same depth, the peak. Then LBFGS on the
+   extended Rosenbrock function in 1000 dimensions on the card.
+15. ``workers``: ``fit`` at 8 layers for 3 steps after CUDA is
+   initialised, from ``DataLoader(num_workers=2)`` (forked processes
+   over shared memory) and from an ``IterableDataset`` through the
+   prefetch thread: losses bit-equal to ``num_workers=0``.
+16. ``serve``: ``ServingEngine`` over ``LlamaForCausalLM(LlamaConfig.
    llama2_7b(dtype="bfloat16", use_flash_attention=False))`` at full
    width and depth, random weights from a seed, the bucketed step, every
    step class a CUDA graph (captured in a warm-up of 16 requests that
@@ -115,7 +141,7 @@ Phases, each of which passes or ends the script with a non-zero code:
    forced, each of its tokens the dense argmax wherever the dense top-2
    margin exceeds 0.5. A profile of 3 decode steps gives the step's
    wall, device busy time and kernels.
-13. ``ragged``: the same over ``LlamaConfig.mistral_7b`` at full width
+17. ``ragged``: the same over ``LlamaConfig.mistral_7b`` at full width
    and depth (32 layers, GQA 32:8, FFN 14336, the 4096 window) with the
    unified ragged step (``ragged=True``, 9 lanes, token capacities 8 and
    264, one CUDA graph each) over a 2048-page pool, 8 requests of 48 to
@@ -124,7 +150,7 @@ Phases, each of which passes or ends the script with a non-zero code:
    forwards times, the same dense checks (three greedy prompts past the
    window).
 
-14. ``generate``: ``cached_attention``'s K5 call (the static cache as a
+18. ``generate``: ``cached_attention``'s K5 call (the static cache as a
    page pool) against its plain version (the JAX package's einsum form)
    at the decode, prefill and speculative-verify shapes of the three
    models below, its int8 and window arms and a float32 prompt, two
@@ -161,6 +187,7 @@ line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -2145,9 +2172,11 @@ def head_check(m, ids):
 
 
 def _counts():
-    from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
+    from paddle_tpu_torch.ops import adamw_kernel, fa_kernel, flash_attention
     return {**fa_kernel.stats, **{f"adamw_{k}": v
-                                  for k, v in adamw_kernel.stats.items()}}
+                                  for k, v in adamw_kernel.stats.items()},
+            **{f"stash_{k}": v
+               for k, v in flash_attention.stash_stats.items()}}
 
 
 def attention_counts(cfg, n):
@@ -2173,9 +2202,10 @@ def check_counts(counts, want, what):
 
 
 def _reset_counts():
-    from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
+    from paddle_tpu_torch.ops import adamw_kernel, fa_kernel, flash_attention
     fa_kernel.reset_stats()
     adamw_kernel.reset_stats()
+    flash_attention.reset_stash_stats()
 
 
 def train_phase(cfg, smi, dev=None, profile_steps=0, batch=TRAIN_BATCH,
@@ -2678,36 +2708,62 @@ def fit_recorder():
     return Recorder()
 
 
-def run_fit(m, rows, batch, steps):
+def run_fit(m, rows, batch, steps, loader=None):
+    """``Model.fit`` over ``loader``, by default a ``DataLoader`` of
+    ``TensorDataset([rows, rows])`` in order."""
     from paddle_tpu_torch.hapi.callbacks import LRScheduler
     from paddle_tpu_torch.io import DataLoader, TensorDataset
     rec = fit_recorder()
     t0 = time.perf_counter()
-    m.fit(DataLoader(TensorDataset([rows, rows]), batch_size=batch,
-                     shuffle=False), epochs=1, verbose=0,
-          num_iters=steps, callbacks=[LRScheduler(), rec])
+    if loader is None:
+        loader = DataLoader(TensorDataset([rows, rows]), batch_size=batch,
+                            shuffle=False)
+    m.fit(loader, epochs=1, verbose=0, num_iters=steps,
+          callbacks=[LRScheduler(), rec])
     return rec, t0
 
 
+@contextlib.contextmanager
+def offloaded(on=True):
+    """LLaMA's decoder layers recomputed with ``offload=True`` (the
+    configuration has no flag for it in either package: a user passes it
+    to ``fleet.recompute``)."""
+    import functools
+
+    from paddle_tpu_torch.distributed.fleet import recompute
+    from paddle_tpu_torch.models import llama
+    if not on:
+        yield
+        return
+    llama.recompute = functools.partial(recompute, offload=True)
+    try:
+        yield
+    finally:
+        llama.recompute = recompute
+
+
 def fit_phase(cfg, smi, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-              steps=FIT_STEPS):
-    """``Model.fit`` over LLaMA-2-7B's width at ``cfg``'s depth with full
-    recompute, decorated O2, LLaMA-2's AdamW, clip and schedule, a
-    DataLoader of random rows: exact launch counts (K1 twice a layer and
-    step, forward and recompute), the schedule, the clip factor, falling
-    losses; tokens/s, step p50, MFU (the model's FLOPs only, recompute
-    not counted) and peak memory."""
+              steps=FIT_STEPS, label="fit", offload=False, check_clip=True):
+    """``Model.fit`` over LLaMA-2-7B's width at ``cfg``'s depth with
+    recompute (``cfg``'s granularity, or ``offload``), decorated O2,
+    LLaMA-2's AdamW, clip and schedule, a DataLoader of random rows:
+    exact launch counts (K1 twice a layer and step, forward and
+    recompute, once under ``full_attn``), the schedule, the clip factor
+    (below 1 on the first steps with ``check_clip``), falling losses;
+    tokens/s, step p50, MFU (the model's FLOPs only, recompute not
+    counted) and peak memory."""
     import torch
     from paddle_tpu_torch.models import count_params, flops_per_token
     from paddle_tpu_torch.optimizer import lr
 
     layers = cfg.num_hidden_layers
+    gran = "offload" if offload else cfg.recompute_granularity
     t0 = time.perf_counter()
     m = fit_setup(cfg, dev)
     on_card = m.device.type == "cuda"
     rows = fit_rows(cfg, batch, seq, steps)
-    print(f"fit model: llama2_7b width h={cfg.hidden_size} L={layers}, "
-          f"recompute {cfg.recompute_granularity}, "
+    print(f"{label} model: llama2_7b width h={cfg.hidden_size} L={layers}, "
+          f"recompute {gran}, "
           f"{count_params(cfg) / 1e9:.3f}B params built float32, decorated "
           f"O2 bf16 (the float32 originals are the masters), batch {batch} "
           f"x {seq}, {steps} steps, built in "
@@ -2715,13 +2771,18 @@ def fit_phase(cfg, smi, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    rec, t_start = run_fit(m, rows, batch, steps)
+    with offloaded(offload):
+        rec, t_start = run_fit(m, rows, batch, steps)
     counts = _counts()
     fwd = layers * steps
-    check_counts(counts, {"fwd_launches": 2 * fwd, "stream_fwd_launches": 0,
+    k1 = fwd if gran == "full_attn" else 2 * fwd
+    # full_attn: every layer's tag kept its core's result, none missed
+    check_counts(counts, {"fwd_launches": k1, "stream_fwd_launches": 0,
                           "dq_launches": fwd, "dkv_launches": fwd,
                           "seg_arm_launches": 0, "drop_arm_launches": 0,
-                          "adamw_kernel_launches": steps}, "fit")
+                          "adamw_kernel_launches": steps,
+                          "stash_kept": fwd if gran == "full_attn" else 0,
+                          "stash_missed": 0}, label)
     want_lrs = []
     sched = fit_schedule(lr, steps)
     for _ in range(steps):
@@ -2732,7 +2793,7 @@ def fit_phase(cfg, smi, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                              f"{want_lrs}")
     ls, factors = rec.losses, rec.factors
     norms = [1.0 / f if f < 1 else None for f in factors]
-    if not all(f < 1 for f in factors[:FIT_EARLY]):
+    if check_clip and not all(f < 1 for f in factors[:FIT_EARLY]):
         raise AssertionError(
             f"clip factors {factors}: the global norm of the early steps "
             "is not above 1 at this init")
@@ -2751,16 +2812,18 @@ def fit_phase(cfg, smi, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     tokens = batch * seq
     tok_s = (steps - 1) * tokens / (rec.ends[-1] - rec.ends[0])
     mfu = flops_per_token(cfg, seq) * tok_s / BF16_FLOPS
-    print(f"fit ok: {steps} steps, losses {[round(x, 4) for x in ls]} "
+    print(f"{label} ok: {steps} steps, losses {[round(x, 4) for x in ls]} "
           f"(first within {FIRST_LOSS_TOL} of {expect:.4f}); learning "
           f"rates {[float(f'{x:.6g}') for x in rec.lrs]} as the schedule; "
           f"clip factors {[round(f, 5) for f in factors]} (global norms "
           f"{[None if n is None else round(n, 3) for n in norms]}); "
-          f"launches K1 {counts['fwd_launches']} (2 x {layers} layers x "
-          f"{steps} steps: forward and recompute), K2 "
+          f"launches K1 {counts['fwd_launches']} ({k1 // fwd} x {layers} "
+          f"layers x {steps} steps: forward"
+          f"{'' if k1 == fwd else ' and recompute'}), K2 "
           f"{counts['dq_launches']} K3 {counts['dkv_launches']}, K4 "
           f"{counts['adamw_kernel_launches']}, plain calls 0", flush=True)
-    print(f"fit llama2_7b L={layers} recompute [{smi}]: {tok_s:.1f} "
+    print(f"{label} llama2_7b L={layers} recompute {gran} [{smi}]: "
+          f"{tok_s:.1f} "
           f"tokens/s over steps 2-{steps} ({rec.ends[-1] - rec.ends[0]:.3f}"
           f" s; the first step took {rec.ends[0] - t_start:.3f} s), step "
           f"p50 {step_s[len(step_s) // 2]:.4f} s (min {step_s[0]:.4f}, max "
@@ -2875,13 +2938,18 @@ def recompute_equal_phase(llama_cfg, gpt_cfg, dev=None, seq=TRAIN_SEQ):
         0, llama_cfg.vocab_size, (RECOMPUTE_BATCH, seq)), device=dev_t)
     _reset_counts()
     off = grads(LlamaForCausalLM, llama_cfg, ids, 1)
-    for gran in ("full", "core_attn"):
-        on = grads(LlamaForCausalLM, dataclasses.replace(
-            llama_cfg, recompute=True, recompute_granularity=gran), ids, 1)
+    for gran in ("full", "core_attn", "full_attn", "offload"):
+        with offloaded(gran == "offload"):
+            on = grads(LlamaForCausalLM, dataclasses.replace(
+                llama_cfg, recompute=True, recompute_granularity=(
+                    "full" if gran == "offload" else gran)), ids, 1)
         res[f"llama_{gran}"] = compare(f"llama recompute {gran}", off, on)
     counts = _counts()
-    check_counts(counts, {"fwd_launches": 2 * 5, "dq_launches": 2 * 3,
-                          "dkv_launches": 2 * 3}, "llama recompute")
+    # K1: 2 without recompute, 4 under full, core_attn and offload, 2
+    # under full_attn, where both layers' tags keep their core's result
+    check_counts(counts, {"fwd_launches": 2 * 8, "dq_launches": 2 * 5,
+                          "dkv_launches": 2 * 5, "stash_kept": 2,
+                          "stash_missed": 0}, "llama recompute")
     ids = torch.as_tensor(np.random.default_rng(3).integers(
         0, gpt_cfg.vocab_size, (RECOMPUTE_BATCH, seq)), device=dev_t)
     off = grads(GPTForCausalLM, gpt_cfg, ids, 2)
@@ -2891,11 +2959,354 @@ def recompute_equal_phase(llama_cfg, gpt_cfg, dev=None, seq=TRAIN_SEQ):
     if torch.equal(off[0][0], off[1][0]):
         raise AssertionError("GPT's two forwards drew the same dropout")
     print(f"recompute ok: 2 layers at full width, batch {RECOMPUTE_BATCH} x "
-          f"{seq}: LLaMA recompute full and core_attn, GPT recompute with "
-          f"dropout {gpt_cfg.hidden_dropout_prob} (two forwards): losses "
-          f"{ {k: round(v, 5) for k, v in res.items()} } and every "
-          "gradient bit-equal to recompute off; K1 twice a layer under "
-          "recompute", flush=True)
+          f"{seq}: LLaMA recompute full, core_attn, full_attn and offload, "
+          f"GPT recompute with dropout {gpt_cfg.hidden_dropout_prob} (two "
+          f"forwards): losses { {k: round(v, 5) for k, v in res.items()} } "
+          "and every gradient bit-equal to recompute off; K1 twice a layer "
+          "under recompute, once under full_attn", flush=True)
+    return res
+
+
+# -- the rest of training around the step --------------------------------------
+
+OFFLOAD_LAYERS = 8     # offload's saved products: ~0.70 GB a layer in bf16
+OPT_LAYERS, OPT_STEPS = 8, 3
+OPT_LR = 1e-5
+WORKERS_LAYERS, WORKERS_STEPS = 8, 3
+# the foreach pass against the leaf rule on the same card tensors, at
+# CHECK_LR (at OPT_LR an SGD step, ~1e-10 under the clip, moves a float32
+# weight by less than its rounding): every tensor bit-equal, but Lamb's,
+# whose trust ratio sums its norms in another order, to LAMB_STEP_TOL of
+# what the leaf rule moved that tensor
+CHECK_LR = 1e-2
+LAMB_STEP_TOL = 1e-3
+LBFGS_DIMS, LBFGS_ITERS = 1000, 100
+
+
+def stash_bytes(cfg, batch, seq):
+    """What a full_attn region keeps a layer: the attention output
+    ``[B, S, H, D]`` in bf16 and its lse ``[B, H, S]`` in float32."""
+    heads = cfg.num_attention_heads
+    return batch * seq * cfg.hidden_size * 2 + batch * heads * seq * 4
+
+
+def full_attn_phase(cfg, smi, fit_res, dev=None, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, steps=FIT_STEPS):
+    """The ``fit`` phase's run with ``recompute_granularity="full_attn"``:
+    K1 once a layer and step (the replay takes the tagged attention
+    output), K2 and K3 as ``fit``; the losses equal ``fit``'s step for
+    step (the same seeds, rows and kernels on the same values); the peak
+    against ``fit``'s and the stash."""
+    got = fit_phase(cfg, smi, dev, batch, seq, steps, label="full_attn")
+    want = fit_res["losses"]
+    diff = max(abs(a - b) for a, b in zip(got["losses"], want))
+    if got["losses"] != want:
+        raise AssertionError(f"full_attn losses {got['losses']} differ from "
+                             f"fit's {want} by up to {diff}")
+    stash = cfg.num_hidden_layers * stash_bytes(cfg, batch, seq) / 2 ** 30
+    peak, fit_peak = got["peak_mem_gib"], fit_res["peak_mem_gib"]
+    print(f"full_attn ok [{smi}]: losses equal fit's step for step (largest "
+          f"difference {diff}); K1 {got['launches']['fwd_launches']} against "
+          f"fit's {fit_res['launches']['fwd_launches']}; peak "
+          f"{peak if peak is None else round(peak, 2)} GiB against fit's "
+          f"{fit_peak if fit_peak is None else round(fit_peak, 2)} (stash "
+          f"{stash:.3f} GiB); {got['tokens_per_s']:.1f} tokens/s against "
+          f"{fit_res['tokens_per_s']:.1f}, step p50 {got['step_p50_s']:.4f} "
+          f"s against {fit_res['step_p50_s']:.4f}", flush=True)
+    return dict(got, fit_loss_max_diff=diff, stash_gib=stash)
+
+
+def offload_phase(smi, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                  steps=FIT_STEPS, layers=OFFLOAD_LAYERS):
+    """``fit`` at ``layers`` with full recompute and again with
+    ``recompute(offload=True)`` (the products' outputs kept): the losses
+    equal, K1 twice a layer and step in both; each run's peak and
+    tokens/s."""
+    from paddle_tpu_torch.models import LlamaConfig
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, recompute=True,
+                                fuse_linear_cross_entropy=True)
+    full = fit_phase(cfg, smi, dev, batch, seq, steps, label="offload_full",
+                     check_clip=False)
+    gc.collect()
+    off = fit_phase(cfg, smi, dev, batch, seq, steps, label="offload",
+                    offload=True, check_clip=False)
+    if off["losses"] != full["losses"]:
+        diff = max(abs(a - b) for a, b in zip(off["losses"],
+                                              full["losses"]))
+        raise AssertionError(f"offload losses {off['losses']} differ from "
+                             f"full's {full['losses']} by up to {diff}")
+    print(f"offload ok [{smi}]: L={cfg.num_hidden_layers}, losses equal full recompute's "
+          f"step for step; peak {off['peak_mem_gib']} GiB against "
+          f"{full['peak_mem_gib']}; {off['tokens_per_s']:.1f} tokens/s "
+          f"against {full['tokens_per_s']:.1f}", flush=True)
+    return dict(full=full, offload=off)
+
+
+def optimizer_cases():
+    """The eleven first-order optimizers and K4's AdamW (for its step
+    time), each a ``(name, factory(parameters))``: O2's float32 masters
+    where the optimizer takes ``multi_precision``, the global-norm clip
+    1.0 on every one."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    def make(cls, mp=True, **kw):
+        def build(params):
+            extra = {"multi_precision": True} if mp else {}
+            return cls(OPT_LR, parameters=params,
+                       grad_clip=ClipGradByGlobalNorm(1.0), **extra, **kw)
+        return build
+    return [("SGD", make(O.SGD, weight_decay=0.01)),
+            ("Momentum", make(O.Momentum, use_nesterov=True)),
+            ("Adagrad", make(O.Adagrad)),
+            ("RMSProp", make(O.RMSProp, centered=True, momentum=0.9)),
+            ("Adamax", make(O.Adamax, mp=False)),
+            ("Adadelta", make(O.Adadelta, mp=False)),
+            ("Lamb", make(O.Lamb)),
+            ("NAdam", make(O.NAdam, mp=False)),
+            ("RAdam", make(O.RAdam, mp=False)),
+            ("Rprop", make(O.Rprop, mp=False)),
+            ("ASGD", make(O.ASGD)),
+            ("AdamW (K4)", make(O.AdamW))]
+
+
+def foreach_mismatch(opt, pairs, clip, step, skip=False):
+    """The optimizer's foreach pass and its leaf rule at ``CHECK_LR``,
+    each on its own copy of the same leaves (the first decoder layer's
+    and the final norm's params, grads and states on the card): the
+    largest departure of a master, a state tensor or a param without a
+    master, over what the leaf rule moved that tensor (0.0 where all are
+    bit-equal; a tensor the rule left as it was and the pass did not
+    counts as infinite). A param with a master must be that master's
+    cast, as the rule makes it. ``skip`` leaves the pass's copy as it
+    was: the fault of an update skipped, which the check must reject."""
+    import copy
+
+    import torch
+    ps = [p for p, _ in pairs]
+    gs = [g for _, g in pairs]
+
+    def copies():
+        return ([p.detach().clone() for p in ps],
+                [copy.deepcopy(opt._get_state(p)) for p in ps])
+    bp, bs = copies()
+    fp, fs = copies()
+    lp, ls = copies()
+    mask = [getattr(p, "need_clip", True) for p in ps]
+    if not skip:
+        opt._apply_foreach(fp, gs, fs, CHECK_LR, step, clip, mask)
+    opt._apply_leaves(lp, gs, ls, CHECK_LR, step, clip, mask)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for f, l, b, sf, sl, sb in zip(fp, lp, bp, fs, ls, bs):
+        if "master" in sl:
+            if not torch.equal(f, sf["master"].to(f.dtype)):
+                return math.inf
+            trios = []
+        else:
+            trios = [(f, l, b)]
+        trios += [(sf[k], sl[k], sb[k]) for k in sl]
+        for x, y, z in trios:
+            if not isinstance(y, torch.Tensor):
+                if x != y:
+                    return math.inf
+                continue
+            d = (x.float() - y.float()).abs().max().item()
+            if d:
+                moved = (y.float() - z.float()).abs().max().item()
+                worst = max(worst, d / moved if moved else math.inf)
+    return worst
+
+
+def optimizers_phase(smi, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     layers=OPT_LAYERS, steps=OPT_STEPS):
+    """LLaMA-2-7B's width at ``layers``, batch x seq, decorated O2 from
+    the same seed for every optimizer: ``steps`` ``train_batch`` steps,
+    each one foreach pass on the card and no leaf-rule step (K4 for
+    AdamW), finite losses; then on a fresh batch's grads the foreach pass
+    against the leaf rule on copies of the first layer's leaves
+    (:func:`foreach_mismatch`), and the skipped update rejected; the
+    optimizer step's time (CUDA events) and the peak memory. Then LBFGS
+    on the extended Rosenbrock function in ``LBFGS_DIMS`` dimensions."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import optimizer as base
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers,
+                                fuse_linear_cross_entropy=True)
+    ids = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, batch, seq)).astype(np.int32)
+    on_card = (dev or "cuda") != "cpu"
+    out = {}
+    for name, make in optimizer_cases():
+        net = amp.decorate(LlamaForCausalLM(cfg, device=dev, seed=0),
+                           level="O2", dtype="bfloat16")
+        m = Model(net).prepare(
+            make(list(net.parameters())),
+            LlamaPretrainingCriterion(cfg).bind(net),
+            amp_configs={"level": "O2", "dtype": "bfloat16"})
+        opt = m._optimizer
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        base.reset_stats()
+        losses = [m.train_batch([ids[0]], [ids[0]]) for _ in range(steps)]
+        counts, passes = _counts(), dict(base.stats)
+        k4 = name.endswith("(K4)")
+        want = {"foreach_passes": 0 if k4 else steps, "leaf_rule_steps": 0}
+        if passes != want or counts["adamw_kernel_launches"] != (
+                steps if k4 else 0):
+            raise AssertionError(f"{name}: {passes} and K4 "
+                                 f"{counts['adamw_kernel_launches']} over "
+                                 f"{steps} steps; want {want}")
+        fwd = cfg.num_hidden_layers * steps
+        check_counts(counts, {"fwd_launches": fwd, "dq_launches": fwd,
+                              "dkv_launches": fwd}, name)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name} losses not finite: {losses}")
+        # one more batch's grads: the check, then the timed step
+        net.train()
+        loss = m._forward_loss(m._tensors([ids[1]]),
+                               m._tensors([ids[1]]))[1]
+        loss.backward()
+        pairs = [(p, base.grad_of(p)) for p in net.parameters()]
+        clip = opt._grad_clip.factor(pairs)
+        err = fault = None
+        if not k4:
+            first = [(p, g) for (n, p), (_, g) in zip(
+                net.named_parameters(), pairs)
+                if n.startswith(("llama.layers.0.", "llama.norm."))]
+            limit = LAMB_STEP_TOL if name == "Lamb" else 0.0
+            err = foreach_mismatch(opt, first, clip, opt._step_count + 1)
+            fault = foreach_mismatch(opt, first, clip, opt._step_count + 1,
+                                     skip=True)
+            if err > limit or not fault > limit:
+                raise AssertionError(
+                    f"{name}: the foreach pass departs from the leaf rule "
+                    f"by {err:.3g} of the step (limit {limit}); the "
+                    f"skipped update by {fault:.3g}, which must be "
+                    "rejected")
+        ms = cuda_ms(opt.step, 3, warmup=0) if on_card else None
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                else None)
+        out[name] = dict(losses=losses, step_ms=ms, peak_mem_gib=peak,
+                         foreach_err=err, skip_fault_err=fault,
+                         passes=passes)
+        print(f"optimizer {name} [{smi}]: losses "
+              f"{[round(x, 4) for x in losses]}, {passes['foreach_passes']} "
+              f"foreach passes, {passes['leaf_rule_steps']} leaf-rule steps, "
+              f"K4 {counts['adamw_kernel_launches']}; step "
+              f"{ms if ms is None else round(ms, 4)} ms; peak "
+              f"{peak if peak is None else round(peak, 2)} GiB"
+              + ("" if err is None else
+                 f"; foreach vs leaf rule at lr {CHECK_LR}: {err:.3g} of "
+                 f"the step, skipped update {fault:.3g} (rejected)"),
+              flush=True)
+        del m, net, opt, loss, pairs
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    out["LBFGS"] = lbfgs_rosenbrock(smi, dev)
+    return out
+
+
+def lbfgs_rosenbrock(smi, dev=None, n=LBFGS_DIMS, iters=LBFGS_ITERS):
+    """LBFGS (history 10) on the extended Rosenbrock function (Moré,
+    Garbow and Hillstrom) in ``n`` dimensions from (-1.2, 1, ...): it
+    must reach the minimum at ones."""
+    import torch
+    from paddle_tpu_torch.optimizer import LBFGS
+
+    w = torch.nn.Parameter(torch.tensor([-1.2, 1.0] * (n // 2),
+                                        device=dev or "cuda"))
+    opt = LBFGS(parameters=[w], max_iter=iters, history_size=10)
+
+    def rosenbrock():
+        a, b = w[0::2], w[1::2]
+        return (100 * (b - a * a) ** 2 + (1 - a) ** 2).sum()
+
+    def closure():
+        loss = rosenbrock()
+        loss.backward()
+        return loss
+    with torch.no_grad():
+        first = rosenbrock().item()
+    t0 = time.perf_counter()
+    loss = opt.step(closure)
+    wall = time.perf_counter() - t0
+    err = (w.detach() - 1).abs().max().item()
+    if not (loss < 1e-6 * first and err < 1e-3):
+        raise AssertionError(f"LBFGS on Rosenbrock: loss {first} -> {loss}, "
+                             f"|x - 1| up to {err} after {opt.n_iter} "
+                             "iterations")
+    print(f"optimizer LBFGS [{smi}]: extended Rosenbrock n={n}, loss "
+          f"{first} -> {loss} in {opt.n_iter} iterations ({wall:.3f} s), "
+          f"|x - 1| <= {err:.3g}", flush=True)
+    return dict(first_loss=first, loss=loss, iterations=opt.n_iter,
+                wall_s=wall, max_err=err)
+
+
+def workers_phase(smi, dev=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                  layers=WORKERS_LAYERS, steps=WORKERS_STEPS):
+    """``fit`` for ``steps`` steps at ``layers`` (recompute, O2, the fit
+    recipe) after CUDA is initialised, from ``DataLoader(num_workers=2)``
+    over the fit rows (forked worker processes over shared memory), and
+    from an ``IterableDataset`` of the same rows through the prefetch
+    thread: losses bit-equal to ``num_workers=0``; no worker and no
+    segment left."""
+    import multiprocessing as mp
+
+    import torch
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, recompute=True,
+                                fuse_linear_cross_entropy=True)
+    rows = fit_rows(cfg, batch, seq, steps)
+    if (dev or "cuda") != "cpu" and not torch.cuda.is_initialized():
+        raise AssertionError("workers: CUDA is not initialised")
+
+    class InWorker(io.TensorDataset):
+        def __getitem__(self, i):
+            if io.get_worker_info() is None:
+                raise AssertionError("a sample fetched outside a worker")
+            return super().__getitem__(i)
+
+    class Stream(io.IterableDataset):
+        def __iter__(self):
+            if io.get_worker_info() is None:
+                raise AssertionError("a stream read outside the prefetch "
+                                     "thread")
+            for r in rows:
+                yield r, r
+
+    loaders = {
+        "num_workers=0": None,
+        "num_workers=2 (processes)": io.DataLoader(
+            InWorker([rows, rows]), batch_size=batch, num_workers=2),
+        "IterableDataset, num_workers=2 (thread)": io.DataLoader(
+            Stream(), batch_size=batch, num_workers=2)}
+    res = {}
+    for what, loader in loaders.items():
+        m = fit_setup(cfg, dev)
+        res[what] = run_fit(m, rows, batch, steps, loader)[0].losses
+        del m
+        gc.collect()
+    want = res["num_workers=0"]
+    for what, got in res.items():
+        if got != want:
+            raise AssertionError(f"workers: {what} losses {got} != "
+                                 f"num_workers=0's {want}")
+    if mp.active_children():
+        raise AssertionError(f"workers left behind: {mp.active_children()}")
+    print(f"workers ok [{smi}]: fit L={cfg.num_hidden_layers} {steps} steps "
+          f"after CUDA "
+          f"init, losses {[round(x, 5) for x in want]} bit-equal from "
+          f"{', '.join(res)}; no worker left", flush=True)
     return res
 
 
@@ -4142,6 +4553,8 @@ def main(argv=None):
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
         ap.error(f"--phases takes {','.join(PHASES)}")
+    if "full_attn" in phases and "fit" not in phases:
+        ap.error("full_attn holds its losses against fit's: add fit")
 
     import torch
     if not torch.cuda.is_available():
@@ -4255,6 +4668,20 @@ def main(argv=None):
             LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="bfloat16",
                                   fuse_linear_cross_entropy=True),
             GPTConfig.gpt3_1_3b(num_hidden_layers=2, dtype="bfloat16"))
+    if "full_attn" in phases:
+        res["full_attn"] = phase("full_attn", full_attn_phase,
+                                 LlamaConfig.llama2_7b(
+                                     num_hidden_layers=FIT_LAYERS,
+                                     recompute=True,
+                                     recompute_granularity="full_attn",
+                                     fuse_linear_cross_entropy=True),
+                                 smi, res["fit"])
+    if "offload" in phases:
+        res["offload"] = phase("offload", offload_phase, smi)
+    if "optimizers" in phases:
+        res["optimizers"] = phase("optimizers", optimizers_phase, smi)
+    if "workers" in phases:
+        res["workers"] = phase("workers", workers_phase, smi)
     if "serve" in phases:
         # the dense reference forward of the engine check is plain float32
         # attention, so K5 is held against a plain reference, not K1
@@ -4291,8 +4718,8 @@ def main(argv=None):
 
 
 PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
-          "mistral_path", "gpt", "gpt_path", "fit", "serve", "ragged",
-          "generate")
+          "mistral_path", "gpt", "gpt_path", "fit", "full_attn", "offload",
+          "optimizers", "workers", "serve", "ragged", "generate")
 
 
 def kernel_rows(res):
@@ -4302,7 +4729,8 @@ def kernel_rows(res):
     of K1-K3 (launches from the GPT run), their segment arms alone and
     K6's (launches from the ``flash_attn_unpadded`` drive), K4, each with
     its launches on its path's counted run and this run's
-    measurements; K4 also with the clip factor (launches from the fit
+    measurements (K1-K3 also with their launches in the ``full_attn``
+    fit run); K4 also with the clip factor (launches from the fit
     run) and with the clip, L1 and float32 grads (the resume run)."""
     rows = []
     k5 = res.get("k5")
@@ -4355,6 +4783,7 @@ def kernel_rows(res):
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}))
     launches = res.get("train", {}).get("launches", {})
+    full_attn = res.get("full_attn", {}).get("launches", {})
     # the bf16 kernels at head_dim 64 and 128
     fwd_src = "paddle_tpu_torch/ops/csrc/fa_fwd_sm90.cuh"
     src_of = {"fwd": fwd_src, "stream": fwd_src,
@@ -4371,6 +4800,7 @@ def kernel_rows(res):
             rows.append(dict(name=name, route="cuda", source=src_of[key],
                              replaces=replaces,
                              launches=launches.get(count),
+                             full_attn_launches=full_attn.get(count),
                              **_row_numbers(res["fa"][key])))
     mistral = res.get("mistral", {}).get("launches", {})
     for key, name, replaces, count in (

@@ -23,7 +23,12 @@ Slices so far:
   ``predict`` / ``save`` / ``load`` over :mod:`.io`'s ``DataLoader``,
   with :mod:`.amp`, the clips of :mod:`.nn`, the schedules of
   :mod:`.optimizer.lr`, :mod:`.regularizer`, :mod:`.metric`,
-  :mod:`.hapi.callbacks` and recompute (:mod:`.distributed.fleet`).
+  :mod:`.hapi.callbacks` and recompute (:mod:`.distributed.fleet`);
+- the rest of training around that step: the other optimizers of
+  :mod:`.optimizer` (one ``torch._foreach_*`` pass a step on the card,
+  and LBFGS), recompute's ``full_attn`` and ``offload`` forms,
+  ``DataLoader`` workers and the rest of :mod:`.io`, and
+  :mod:`.hapi.summary`'s ``summary`` and ``flops``.
 """
 from .device import resolve_device, resolve_dtype
 

@@ -12,7 +12,8 @@ import torch
 __all__ = ["resolve_device", "resolve_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16, "int8": torch.int8}
+           "float16": torch.float16, "int8": torch.int8,
+           "int32": torch.int32, "int64": torch.int64}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,7 +35,7 @@ def resolve_device(device=None) -> torch.device:
 
 def resolve_dtype(dtype) -> torch.dtype:
     """Map a dtype name of the JAX package ("float32", "bfloat16",
-    "float16", "int8") or a ``torch.dtype`` to a ``torch.dtype``."""
+    "float16", "int8", "int32", "int64") or a ``torch.dtype`` to a ``torch.dtype``."""
     if isinstance(dtype, torch.dtype):
         return dtype
     try:

@@ -1,5 +1,5 @@
 """``fleet`` (counterpart: ``paddle_tpu/distributed/fleet``): activation
 recomputation only so far."""
-from .recompute import recompute, recompute_sequential
+from .recompute import mark_saveable, recompute, recompute_sequential
 
-__all__ = ["recompute", "recompute_sequential"]
+__all__ = ["mark_saveable", "recompute", "recompute_sequential"]

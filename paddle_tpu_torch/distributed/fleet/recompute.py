@@ -18,8 +18,24 @@ counter-folded keys. The AMP state (:mod:`...amp.state`) is handled the
 same way: ``Model`` leaves ``auto_cast`` before backward, and the replay
 casts as the forward did.
 
-Granularity ``"full"`` (recompute everything) is ported; ``"full_attn"``
-(keep the tagged attention output) and ``offload`` are refused.
+What backward may keep instead of recomputing, as the JAX package's
+remat policies:
+
+- ``granularity="full"`` (``nothing_saveable``): nothing.
+- ``granularity="full_attn"`` (``save_only_these_names("attn_out")``):
+  the attention output that :func:`mark_saveable` tags. The kernels'
+  backward (K2, K3) needs the attention core's ``out`` and ``lse``, so a
+  region keeps both from its forward, in call order, and the replay takes
+  them instead of launching the forward kernel (K1 or K6) again; q, k, v
+  and the rest of the segment are recomputed. A core whose output is
+  not tagged is recomputed.
+- ``offload=True`` (``dots_saveable``, which it takes whatever the
+  granularity): the outputs of the matrix products (ATen ``mm``,
+  ``addmm``, ``bmm``, ``baddbmm``) through
+  ``torch.utils.checkpoint``'s selective checkpointing; everything else,
+  the attention core included (it is no product there either), is
+  recomputed. Nothing moves to the host, in either package.
+
 ``use_reentrant`` is taken for the reference's signature: the segment
 runs non-reentrant either way, with the same gradients.
 """
@@ -29,11 +45,46 @@ import contextlib
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ...amp.state import amp_state
+from ...ops.flash_attention import StashRegion, stash_tagged
 
-__all__ = ["recompute", "recompute_sequential"]
+__all__ = ["recompute", "recompute_sequential", "mark_saveable"]
+
+# the name that granularity "full_attn" saves
+_SAVED_NAME = "attn_out"
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def mark_saveable(t, name="attn_out"):
+    """Tag ``t`` under ``name``. A ``full_attn`` region saves
+    ``"attn_out"``: when ``t`` is (a view of) the output of the attention
+    core that ran last, that core's ``out`` and ``lse`` are kept for
+    backward (``ops.flash_attention.stash_tagged``, which counts a tag
+    that matches no core). Returns ``t``; an identity anywhere else."""
+    if name == _SAVED_NAME:
+        stash_tagged(t)
+    return t
+
+
+def _merged(*pairs):
+    """One (forward, recompute) context pair entering every pair's."""
+    @contextlib.contextmanager
+    def enter(contexts):
+        with contextlib.ExitStack() as stack:
+            for c in contexts:
+                stack.enter_context(c)
+            yield
+    return (enter([p[0] for p in pairs]), enter([p[1] for p in pairs]))
 
 
 def _segment_generators(function):
@@ -83,7 +134,9 @@ def recompute(function, *args, **kwargs):
     backward. Without grad (``torch.no_grad``, evaluation) the function
     runs plainly. Options: ``preserve_rng_state`` (default True: torch's
     default generators as well as the segment's own), ``granularity``
-    (``"full"``), ``use_reentrant`` (accepted; see the module note)."""
+    (``"full"`` or ``"full_attn"``), ``offload`` (keep the matrix
+    products' outputs), ``use_reentrant`` (accepted; see the module
+    note)."""
     return _recompute(function, args, kwargs, ())
 
 
@@ -93,15 +146,8 @@ def _recompute(function, args, kwargs, generators):
     kwargs.pop("use_reentrant", None)
     preserve = kwargs.pop("preserve_rng_state", True)
     granularity = kwargs.pop("granularity", "full")
-    if kwargs.pop("offload", False):
-        raise NotImplementedError(
-            "recompute(offload=True) is not ported to paddle_tpu_torch yet")
-    if granularity == "full_attn":
-        raise NotImplementedError(
-            "recompute granularity 'full_attn' (keeping the tagged "
-            "attention output, mark_saveable) is not ported to "
-            "paddle_tpu_torch yet")
-    if granularity != "full":
+    offload = kwargs.pop("offload", False)
+    if granularity not in ("full", "full_attn"):
         raise ValueError(
             f"recompute granularity {granularity!r} not in ('full', "
             "'full_attn') — 'core_attn' is handled by the caller wrapping "
@@ -110,9 +156,20 @@ def _recompute(function, args, kwargs, generators):
         return function(*args, **kwargs)
     gens = (_segment_generators(function) + list(generators)
             if preserve else [])
+
+    def contexts():
+        pairs = [_replay_contexts(gens)]
+        if offload:
+            pairs.append(create_selective_checkpoint_contexts(
+                _dots_saveable))
+        elif granularity == "full_attn":
+            region = StashRegion()
+            pairs.append((region.entered(False), region.entered(True)))
+        return _merged(*pairs)
+
     return checkpoint(function, *args, use_reentrant=False,
-                      preserve_rng_state=preserve,
-                      context_fn=lambda: _replay_contexts(gens), **kwargs)
+                      preserve_rng_state=preserve, context_fn=contexts,
+                      **kwargs)
 
 
 def recompute_sequential(ctx, functions, *args, **kwargs):

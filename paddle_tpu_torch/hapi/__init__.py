@@ -1,5 +1,6 @@
 """High-level training API (counterpart: ``paddle_tpu/hapi``)."""
 from . import callbacks
 from .model import Model
+from .summary import flops, summary
 
-__all__ = ["Model", "callbacks"]
+__all__ = ["Model", "callbacks", "flops", "summary"]

@@ -1,14 +1,16 @@
 """``hapi`` callbacks (counterpart: ``paddle_tpu/hapi/callbacks.py``):
 ``Callback``, ``CallbackList``, ``ProgBarLogger``, ``ModelCheckpoint``,
 ``EarlyStopping``, ``LRScheduler`` (steps the optimizer's schedule; the
-JAX package's ``fit`` adds it only when it is passed) and
-``ReduceLROnPlateau``. ``VisualDL`` is not ported and raises.
+JAX package's ``fit`` adds it only when it is passed),
+``ReduceLROnPlateau`` and ``VisualDL`` (scalars as JSON lines, as the
+JAX package writes them).
 
 The logs a callback receives hold host floats: ``fit`` fetches each
 step's loss once, as the JAX package does, and nothing else.
 """
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -267,6 +269,33 @@ class ReduceLROnPlateau(Callback):
 
 
 class VisualDL(Callback):
+    """The reference's VisualDL callback API without the visualdl
+    package: one JSON record a line in ``log_dir/scalars.jsonl``,
+    ``{"kind": "epoch", "step": epoch, <each float log>}`` at the end of
+    every epoch, appended and flushed as it is written."""
+
     def __init__(self, log_dir="./log"):
-        raise NotImplementedError(
-            "the VisualDL callback is not ported to paddle_tpu_torch yet")
+        super().__init__()
+        self.log_dir = log_dir
+        self._f = None
+
+    def _emit(self, kind, step, logs):
+        if self._f is None:
+            os.makedirs(self.log_dir, exist_ok=True)
+            self._f = open(os.path.join(self.log_dir, "scalars.jsonl"), "a")
+        rec = {"kind": kind, "step": int(step)}
+        for k, v in (logs or {}).items():
+            try:
+                rec[k] = float(v[0] if isinstance(v, (list, tuple)) else v)
+            except (TypeError, ValueError):
+                continue
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def on_epoch_end(self, epoch, logs=None):
+        self._emit("epoch", epoch, logs)
+
+    def on_train_end(self, logs=None):
+        if self._f:
+            self._f.close()
+            self._f = None

@@ -19,8 +19,8 @@ losses once at the end.
 ``Model(network, inputs, labels)``: only the number of ``inputs`` is read,
 to split a loader's batch into inputs and labels, as the JAX package
 does. ``fit``'s ``accumulate_grad_batches`` and ``drop_last``, which the
-JAX package accepts and never reads, raise unless left at 1 and False;
-so does the fleet stepper, ``summary`` and ``DataLoader(num_workers>0)``.
+JAX package accepts and never reads, raise unless left at 1 and False.
+The fleet stepper is not ported.
 """
 from __future__ import annotations
 
@@ -303,5 +303,21 @@ class Model:
         return self.network.parameters()
 
     def summary(self, input_size=None, dtype=None):
-        raise NotImplementedError(
-            "Model.summary is not ported to paddle_tpu_torch yet")
+        """With ``input_size``: :func:`.summary.summary` of the network
+        (one forward on zeros); without: a table of the parameters.
+        Returns ``{"total_params", "trainable_params"}``."""
+        if input_size is not None:
+            from .summary import summary
+            return summary(self.network, input_size, dtypes=dtype)
+        total = trainable = 0
+        lines = ["-" * 60, f"{'Param name':<40}{'Shape':<14}{'#':>6}",
+                 "-" * 60]
+        for n, p in self.network.named_parameters():
+            total += p.numel()
+            trainable += p.numel() if p.requires_grad else 0
+            lines.append(f"{n:<40}{str(list(p.shape)):<14}{p.numel():>6}")
+        lines += ["-" * 60, f"Total params: {total}",
+                  f"Trainable params: {trainable}",
+                  f"Non-trainable params: {total - trainable}", "-" * 60]
+        print("\n".join(lines))
+        return {"total_params": total, "trainable_params": trainable}

@@ -478,6 +478,8 @@ class GenerationMixin:
                                   dtype=torch.int64).to(dev)
         b, s = ids.shape
         max_new = int(max_new_tokens)
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
         eos = -1 if eos_token_id is None else int(eos_token_id)
         cache_dtype = _normalize_cache_dtype(cache_dtype)
         rp = float(repetition_penalty)

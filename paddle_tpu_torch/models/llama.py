@@ -25,11 +25,14 @@ Module names mirror the JAX package (``llama.layers.0.self_attn.q_proj``
 - ``recompute`` (training only): ``recompute_granularity="full"`` runs
   each decoder layer, ``"core_attn"`` each layer's attention (its
   projections included), under :func:`..distributed.fleet.recompute`, so
-  backward runs it again (K1 launches twice a layer and step).
+  backward runs it again (K1 launches twice a layer and step);
+  ``"full_attn"`` runs each layer so with the attention output tagged by
+  :func:`..distributed.fleet.mark_saveable`, which backward keeps: K1
+  launches once a layer and step.
 
 Configuration flags outside the ported slices (tensor, sequence and
-context parallelism, MoE, ``recompute_granularity="full_attn"``) raise
-``NotImplementedError``; none is silently ignored.
+context parallelism, MoE) raise ``NotImplementedError``; none is
+silently ignored.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, resolve_dtype
-from ..distributed.fleet.recompute import recompute
+from ..distributed.fleet.recompute import mark_saveable, recompute
 from ..nn import Linear, RMSNorm
 from ..nn.functional import (flashmask_attention,
                              fused_rotary_position_embedding,
@@ -113,18 +116,16 @@ def _check_slice(cfg):
         "sequence_parallel": cfg.sequence_parallel,
         "context_parallel": cfg.context_parallel,
         "moe_num_experts": cfg.moe_num_experts > 0,
-        "recompute_granularity='full_attn'": (
-            cfg.recompute and cfg.recompute_granularity == "full_attn"),
     }
     for name, on in unsupported.items():
         if on:
             raise NotImplementedError(
                 f"LlamaConfig.{name} is not ported to paddle_tpu_torch yet")
-    if cfg.recompute and cfg.recompute_granularity not in ("full",
-                                                           "core_attn"):
+    if cfg.recompute and cfg.recompute_granularity not in (
+            "full", "full_attn", "core_attn"):
         raise ValueError(f"recompute_granularity="
-                         f"{cfg.recompute_granularity!r}: use 'full' or "
-                         "'core_attn'")
+                         f"{cfg.recompute_granularity!r}: use 'full', "
+                         "'full_attn' or 'core_attn'")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"LlamaConfig.dtype={cfg.dtype!r}: use "
                          "'float32' or 'bfloat16'")
@@ -191,7 +192,11 @@ class LlamaAttention(nn.Module):
                 mask = pos[None, :] > pos[:, None] - int(sw)
             out = _attention_ref(q.float(), k.float(), v.float(),
                                  mask=mask, causal=True).to(x.dtype)
-        return self.o_proj(out.reshape(b, s, nh * hd))
+        out = out.reshape(b, s, nh * hd)
+        if (self.cfg.recompute and self.training
+                and self.cfg.recompute_granularity == "full_attn"):
+            out = mark_saveable(out, "attn_out")
+        return self.o_proj(out)
 
     def forward_cached(self, x, k_buf, v_buf, plan):
         """The static-cache path of ``generate`` (``models/generation.py``):
@@ -255,7 +260,8 @@ class LlamaDecoderLayer(nn.Module):
                 x, position_ids, attn_mask, startend_row_indices,
                 attn=lambda *a: recompute(self.self_attn, *a))
         return recompute(self._block, x, position_ids, attn_mask,
-                         startend_row_indices)
+                         startend_row_indices,
+                         granularity=self.cfg.recompute_granularity)
 
     def forward_cached(self, x, k_buf, v_buf, plan):
         a, k_buf, v_buf = self.self_attn.forward_cached(

@@ -41,6 +41,9 @@ what is missing; they are never densified or sent to a plain version.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from . import fa_kernel
@@ -48,7 +51,8 @@ from .fa_kernel import fa_backward, fa_forward
 
 __all__ = ["flash_attention_bshd", "flash_attention", "flash_core_lse",
            "flashmask_attention", "flash_core_fm_lse",
-           "dispatch_stats", "reset_dispatch_stats"]
+           "dispatch_stats", "reset_dispatch_stats", "StashRegion",
+           "stash_tagged", "stash_stats", "reset_stash_stats"]
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -61,6 +65,94 @@ def dispatch_stats():
 
 def reset_dispatch_stats():
     fa_kernel.reset_stats()
+
+
+# -- the core's result kept across a recompute replay -------------------------
+#
+# A ``full_attn`` recompute region (``distributed.fleet.recompute``) enters
+# a StashRegion for its forward and again for its replay. In the forward,
+# ``stash_tagged`` keeps the ``(out, lse)`` of the core whose output the
+# model tags; in the replay that core returns them instead of launching
+# its forward kernel (K1 or K6) again.
+
+# kept: tags that matched the core that ran last; missed: tags that
+# matched none (that core is recomputed)
+stash_stats = {"kept": 0, "missed": 0}
+
+# the regions running now in this thread, innermost last (a replay runs
+# in the thread that runs backward)
+_local = threading.local()
+
+
+def reset_stash_stats():
+    for key in stash_stats:
+        stash_stats[key] = 0
+
+
+class StashRegion:
+    """One recompute region: the cores' results that a tag kept in its
+    forward (``saved``, by call index) and the last untagged one
+    (``pending``)."""
+
+    def __init__(self):
+        self.saved = {}
+        self.pending = None
+        self.calls = 0
+        self.replay = False
+
+    @contextlib.contextmanager
+    def entered(self, replay):
+        """The region around its forward (``replay=False``) or its
+        replay."""
+        self.calls, self.replay, self.pending = 0, replay, None
+        stack = _local.__dict__.setdefault("regions", [])
+        stack.append(self)
+        try:
+            yield
+        finally:
+            stack.pop()
+            self.pending = None
+
+
+def _active_region():
+    stack = getattr(_local, "regions", None)
+    return stack[-1] if stack else None
+
+
+def _core_forward(run):
+    """``run() -> (out, lse)``, the core's forward kernel, under the
+    active region: in its forward the result waits for a tag; in its
+    replay a kept result is returned as it was and ``run`` is not
+    called."""
+    region = _active_region()
+    if region is None:
+        return run()
+    i = region.calls
+    region.calls += 1
+    if region.replay:
+        if i in region.saved:
+            return tuple(x.detach() for x in region.saved[i])
+        return run()
+    out, lse = run()
+    region.pending = (i, out.detach(), lse.detach())
+    return out, lse
+
+
+def stash_tagged(t):
+    """In the forward of an active region, keep the ``(out, lse)`` of the
+    core that ran last when ``t`` is (a view of) its output, else count a
+    miss (an attention arm outside the kernels, or a tag after a cast or
+    copy: that core is recomputed). Anywhere else, nothing."""
+    region = _active_region()
+    if region is None or region.replay:
+        return
+    pending, region.pending = region.pending, None
+    if (pending is not None and t.untyped_storage().data_ptr()
+            == pending[1].untyped_storage().data_ptr()):
+        region.saved[pending[0]] = pending[1:]
+        stash_stats["kept"] += 1
+    else:
+        stash_stats["missed"] += 1
 
 
 def _attention_ref(q, k, v, mask=None, causal=False, scale=None):
@@ -137,17 +229,19 @@ class _FlashCore(torch.autograd.Function):
     into delta (none when only ``out`` is used). The segment ids and the
     dropout seed (an int) are saved with the lse, so the backward redraws
     the forward's keep mask. The mask, the bands and the segment ids take
-    no gradient."""
+    no gradient. In a ``full_attn`` recompute region the replay takes
+    the forward's tagged ``(out, lse)`` instead of launching again
+    (:class:`StashRegion`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, mask, q_seg, kv_seg, dropout_p,
                 seed, *fm):
         ctx.set_materialize_grads(False)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = fa_forward(q, k, v, causal=causal, scale=scale,
-                              return_lse=True, mask=mask, q_seg=q_seg,
-                              kv_seg=kv_seg, dropout_p=dropout_p, seed=seed,
-                              **_fm_kw(fm))
+        out, lse = _core_forward(lambda: fa_forward(
+            q, k, v, causal=causal, scale=scale, return_lse=True, mask=mask,
+            q_seg=q_seg, kv_seg=kv_seg, dropout_p=dropout_p, seed=seed,
+            **_fm_kw(fm)))
         ctx.save_for_backward(q, k, v, out, lse, mask, q_seg, kv_seg, *fm)
         ctx.causal, ctx.scale = causal, scale
         ctx.dropout_p, ctx.seed = dropout_p, seed

@@ -6,9 +6,13 @@ decay as a coefficient or :class:`~..regularizer.L2Decay`,
 master weights under ``multi_precision`` (the original float32 values
 that :func:`..amp.decorate` kept, where it ran). :meth:`Optimizer.step`
 updates every parameter that has a gradient IN PLACE, the step count
-starting at 1; a subclass either gives the pure per-leaf rule ``_update``
-(run leaf by leaf, as the JAX package's XLA path does) or overrides
-``_apply`` with a multi-tensor kernel (:class:`~.optimizers.Adam`).
+starting at 1. A subclass gives the pure per-leaf rule ``_update`` (the
+JAX package's, run leaf by leaf on CPU parameters), and either a
+multi-tensor pass ``_foreach_update`` in ``torch._foreach_*`` that CUDA
+parameters take instead (the counterpart of the JAX package's one jitted
+``_fused_apply``; ``stats`` counts the passes and the leaf-rule steps),
+or its own ``_apply`` over a hand-written kernel
+(:class:`~.optimizers.Adam`).
 
 :class:`~..nn.clip_grad.ClipGradByGlobalNorm` reaches ``_apply`` as a
 float32 factor on the device (K4 folds it into its one pass), and no
@@ -30,7 +34,17 @@ from ..ops.adamw_kernel import apply_in_place
 from ..regularizer import L1Decay
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "grad_of"]
+__all__ = ["Optimizer", "grad_of", "stats", "reset_stats"]
+
+stats = {"foreach_passes": 0, "leaf_rule_steps": 0}
+# elements of one group of a multi-tensor pass (1 GiB of float32): a
+# rule's temporaries stay a few GiB whatever the model's size
+FOREACH_GROUP = 1 << 28
+
+
+def reset_stats():
+    for key in stats:
+        stats[key] = 0
 
 
 def grad_of(p):
@@ -52,6 +66,38 @@ def _decay_coeff(weight_decay):
 
 def _l1_coeff(weight_decay):
     return weight_decay.coeff if isinstance(weight_decay, L1Decay) else 0.0
+
+
+def _groups(params):
+    """Consecutive runs of leaf indices of about ``FOREACH_GROUP``
+    elements."""
+    limit, group, n = FOREACH_GROUP, [], 0
+    for i, p in enumerate(params):
+        if group and n + p.numel() > limit:
+            yield group
+            group, n = [], 0
+        group.append(i)
+        n += p.numel()
+    if group:
+        yield group
+
+
+def foreach_grads(grads, ws, clip=None, clip_mask=None, l1=0.0):
+    """:func:`~..ops.adamw_kernel.prepare_grad` for every leaf: the
+    clipped leaves' grads times ``clip`` in float32 and rounded back to
+    their dtype, each cast to its ``ws`` (the tensor the rule runs on),
+    ``l1 * sign(w)`` added. The grads themselves are not written."""
+    gs = list(grads)
+    if clip is not None:
+        idx = [i for i, c in enumerate(clip_mask or [True] * len(gs)) if c]
+        scaled = torch._foreach_mul([gs[i].float() for i in idx], clip)
+        for i, g in zip(idx, scaled):
+            gs[i] = g.to(gs[i].dtype)
+    gs = [g.to(w.dtype) for g, w in zip(gs, ws)]
+    if l1:
+        gs = torch._foreach_add(gs, torch._foreach_mul(
+            torch._foreach_sign(ws), l1))
+    return gs
 
 
 class Optimizer:
@@ -135,15 +181,52 @@ class Optimizer:
     def _hyperparams(self) -> dict:
         return {"weight_decay": self._weight_decay}
 
+    _foreach_update = None   # (ws, gs, states, lr, step, hp), in place
+
     def _apply(self, params, grads, states, lr, step, clip=None,
                clip_mask=None):
-        """The rule leaf by leaf; ``clip`` (the folded global-norm factor)
-        applies to the leaves whose ``clip_mask`` entry is true."""
+        """CUDA params through the subclass's multi-tensor pass where it
+        has one, else the rule leaf by leaf; ``clip`` (the folded
+        global-norm factor) applies to the leaves whose ``clip_mask``
+        entry is true."""
+        if params[0].device.type != "cpu" and self._foreach_update:
+            return self._apply_foreach(params, grads, states, lr, step,
+                                       clip, clip_mask)
+        return self._apply_leaves(params, grads, states, lr, step, clip,
+                                  clip_mask)
+
+    def _apply_leaves(self, params, grads, states, lr, step, clip=None,
+                      clip_mask=None):
+        """The rule ``_update`` leaf by leaf, in place."""
+        stats["leaf_rule_steps"] += 1
         hp = self._hyperparams()
         mask = clip_mask or [True] * len(params)
         for p, g, s, c in zip(params, grads, states, mask):
             apply_in_place(p, g, s, lambda w, gw, st: self._update(
                 w, gw, st, lr, step, hp), clip if c else None, self._l1)
+
+    def _apply_foreach(self, params, grads, states, lr, step, clip=None,
+                       clip_mask=None):
+        """``_foreach_update`` over the leaves, in place, in consecutive
+        groups of about ``FOREACH_GROUP`` elements (every rule is leaf by
+        leaf, so grouping changes nothing but the temporaries' size),
+        with the leaf rule's grads (:func:`foreach_grads`) and masters:
+        the rule runs on the float32 master where there is one, and the
+        param becomes its cast. Nothing is read on the host."""
+        stats["foreach_passes"] += 1
+        hp = self._hyperparams()
+        mask = clip_mask or [True] * len(params)
+        for idx in _groups(params):
+            ps, st = [params[i] for i in idx], [states[i] for i in idx]
+            ws = [s.get("master", p) for p, s in zip(ps, st)]
+            gs = foreach_grads([grads[i] for i in idx], ws, clip,
+                               [mask[i] for i in idx], self._l1)
+            self._foreach_update(ws, gs, st, lr, step, hp)
+            pairs = [(p, s["master"]) for p, s in zip(ps, st)
+                     if "master" in s]
+            if pairs:
+                torch._foreach_copy_([p for p, _ in pairs],
+                                     [m for _, m in pairs])
 
     # -- step ---------------------------------------------------------------
     @torch.no_grad()

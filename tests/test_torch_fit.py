@@ -223,9 +223,10 @@ def test_unread_and_unported_arguments_are_refused():
     for kw in (dict(accumulate_grad_batches=2), dict(drop_last=True)):
         with pytest.raises(NotImplementedError, match="never reads"):
             model.fit(data, verbose=0, **kw)
-    with pytest.raises(NotImplementedError, match="num_workers"):
-        io.DataLoader(data, num_workers=2)
-    with pytest.raises(NotImplementedError, match="VisualDL"):
-        callbacks.VisualDL()
-    with pytest.raises(NotImplementedError, match="summary"):
-        model.summary()
+    # ported since: worker processes, VisualDL and summary
+    assert [b[0].tolist() for b in io.DataLoader(data, batch_size=2,
+                                                  num_workers=2)] == \
+        [b[0].tolist() for b in io.DataLoader(data, batch_size=2)]
+    assert callbacks.VisualDL().log_dir == "./log"
+    n = sum(p.numel() for p in tm.parameters())
+    assert model.summary() == {"total_params": n, "trainable_params": n}

@@ -336,6 +336,19 @@ def test_guards_raise_what_the_reference_raises(kw, exc, llama):
         tm.generate(ids, draft_model=td, **kw)
 
 
+@pytest.mark.parametrize("program", ["vanilla", "beam", "speculative"])
+def test_max_new_tokens_below_one_is_refused_by_name(program, llama):
+    """The reference returns ``[B, 1]`` from its vanilla program and
+    raises a bare ``IndexError`` from its beam program; the port refuses
+    ``max_new_tokens < 1`` in every program before anything runs."""
+    tm = llama[1]
+    kw = {"beam": dict(num_beams=2),
+          "speculative": dict(draft_model=tm)}.get(program, {})
+    for n in (0, -1):
+        with pytest.raises(ValueError, match="max_new_tokens"):
+            tm.generate(_prompts(), max_new_tokens=n, **kw)
+
+
 # -- the port's own checks ----------------------------------------------------
 
 SAMPLE = dict(do_sample=True, temperature=0.8, top_k=20, top_p=0.9)

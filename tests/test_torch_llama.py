@@ -144,11 +144,25 @@ def test_state_dict_conversion_transposes_and_refuses_mismatches():
         state_dict_from_paddle_tpu(bad, cfg)
 
 
+FULL_ATTN = dict(recompute=True, recompute_granularity="full_attn")
+
+
 @pytest.mark.parametrize("flag", [
     dict(tensor_parallel=True), dict(sequence_parallel=True),
-    dict(context_parallel="ring"), dict(moe_num_experts=4),
-    dict(recompute=True, recompute_granularity="full_attn")])
+    dict(context_parallel="ring"), dict(moe_num_experts=4), FULL_ATTN])
 def test_unported_config_flags_raise(flag):
+    """The flags outside the ported slices raise. ``full_attn`` recompute
+    is ported now: it builds and trains, its attention forward running
+    once a layer (the tagged output is kept for backward)."""
+    if flag is FULL_ATTN:
+        from paddle_tpu_torch.ops import fa_kernel
+        m = LlamaForCausalLM(LlamaConfig(**{**TINY, **flag}), device="cpu")
+        m.train()
+        fa_kernel.reset_stats()
+        m(torch.zeros(1, 4, dtype=torch.long)).float().sum().backward()
+        assert fa_kernel.stats["plain_fwd_calls"] == TINY[
+            "num_hidden_layers"]
+        return
     with pytest.raises(NotImplementedError):
         LlamaForCausalLM(LlamaConfig(**{**TINY, **flag}), device="cpu")
 

@@ -1,12 +1,19 @@
 """Recompute and checkpoint resume in paddle_tpu_torch on the CPU.
 
 - ``recompute`` on equals recompute off BIT FOR BIT, losses and every
-  gradient: LLaMA at ``recompute_granularity`` "full" and "core_attn",
-  and GPT with hidden and attention dropout 0.1 (the replay draws the
-  forward's masks from the model's generator);
+  gradient: LLaMA at ``recompute_granularity`` "full", "core_attn" and
+  "full_attn" and with ``offload=True``, and GPT with hidden and
+  attention dropout 0.1 (the replay draws the forward's masks from the
+  model's generator); the attention core's forward runs once a layer
+  and pass under "full_attn" (the replay takes the tagged ``out`` and
+  ``lse``) and twice otherwise; ``offload`` keeps the products (the
+  backward runs no forward projection again);
 - with recompute, the port tracks ``paddle_tpu`` loss for loss (1e-5,
-  float32, as ``test_torch_train.py``) for LLaMA and GPT (GPT without
-  dropout: the two packages draw masks from different generators);
+  float32, as ``test_torch_train.py``) for LLaMA ("full", "full_attn",
+  and ``offload`` patched into both packages' recompute call; the
+  attention core's forward counted) and GPT
+  (GPT without dropout: the two packages draw masks from different
+  generators);
 - ``Model.fit`` under ``amp_configs`` O1 with recompute equals it
   without recompute bit for bit (the replay casts as the forward did,
   though ``Model`` leaves ``auto_cast`` before backward), and tracks
@@ -19,9 +26,12 @@
   ``ClipGradByGlobalNorm`` and ``LinearWarmup(CosineAnnealingDecay)``;
 - the refused granularity and options.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import paddle_tpu as P
 from paddle_tpu.models import LlamaConfig as JaxConfig
@@ -31,15 +41,17 @@ from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.models.llama import \
     LlamaPretrainingCriterion as JaxCriterion
 from paddle_tpu_torch import amp, io
+from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.distributed.fleet import (recompute,
                                                 recompute_sequential)
 from paddle_tpu_torch.hapi import Model, callbacks
+from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
                                      LlamaForCausalLM,
                                      LlamaPretrainingCriterion,
                                      state_dict_from_paddle_tpu)
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-from paddle_tpu_torch.ops import fa_kernel
+from paddle_tpu_torch.ops import fa_kernel, flash_attention
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.regularizer import L1Decay
@@ -96,20 +108,65 @@ def _assert_bit_equal(a, b):
         assert torch.equal(a[1][name], b[1][name]), name
 
 
-@pytest.mark.parametrize("granularity", ["full", "core_attn"])
-def test_llama_recompute_is_bit_equal_to_no_recompute(granularity):
+class _CountMM(TorchDispatchMode):
+    """Counts the ATen 2-D matrix products (the projections; the plain
+    attention's are batched) that run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in (torch.ops.aten.mm.default,
+                           torch.ops.aten.addmm.default)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture
+def offload(monkeypatch):
+    """LLaMA's decoder layers recomputed with ``offload=True`` (neither
+    package's config has the flag; a user passes it to ``recompute``)."""
+    monkeypatch.setattr(tllama, "recompute",
+                        functools.partial(recompute, offload=True))
+
+
+# recompute granularity -> the attention core's forward calls of one
+# forward and backward of 2 layers, and the projections a layer runs
+# again in backward: the replay stops after the last one whose input
+# backward keeps (the MLP's down_proj under "full", o_proj under
+# "core_attn" need not run)
+CORE_FWD = {"full": 4, "core_attn": 4, "full_attn": 2, "offload": 4}
+PROJ_AGAIN = {"full": 6, "core_attn": 3, "full_attn": 6, "offload": 0}
+
+
+@pytest.mark.parametrize("granularity", sorted(CORE_FWD))
+def test_llama_recompute_is_bit_equal_to_no_recompute(granularity, request):
     ids = _batches(1)[0]
-    runs = []
+    runs, mms = [], []
     for rc in (False, True):
-        cfg = LlamaConfig(**TINY, recompute=rc,
-                          recompute_granularity=granularity)
+        if rc and granularity == "offload":
+            request.getfixturevalue("offload")
+        cfg = LlamaConfig(**TINY, recompute=rc, recompute_granularity=(
+            "full" if granularity == "offload" else granularity))
         net = LlamaForCausalLM(cfg, device="cpu", seed=3)
         fa_kernel.reset_stats()
-        runs.append(_loss_and_grads(
-            net, LlamaPretrainingCriterion(cfg).bind(net), ids))
-        # the attention's forward runs again in backward under recompute
-        assert fa_kernel.stats["plain_fwd_calls"] == 2 * (1 + rc)
+        flash_attention.reset_stash_stats()
+        count = _CountMM()
+        with count:
+            runs.append(_loss_and_grads(
+                net, LlamaPretrainingCriterion(cfg).bind(net), ids))
+        mms.append(count.n)
+        # the attention's forward runs again in backward under recompute,
+        # but for a full_attn region's tagged output
+        assert fa_kernel.stats["plain_fwd_calls"] == (
+            CORE_FWD[granularity] if rc else 2)
+        # every full_attn tag kept its core's result
+        assert flash_attention.stash_stats == {"kept": (
+            2 if rc and granularity == "full_attn" else 0), "missed": 0}
     _assert_bit_equal(*runs)
+    # the recomputed projections run again, unless offloaded
+    assert mms[1] - mms[0] == (PROJ_AGAIN[granularity] *
+                               TINY["num_hidden_layers"])
 
 
 def test_gpt_recompute_with_dropout_is_bit_equal_to_no_recompute():
@@ -138,6 +195,32 @@ def _port_loop(tm, crit, xs):
     model = Model(tm)
     model.prepare(AdamW(LR, parameters=tm.parameters()), crit)
     return model.train_batch_loop([xs], [xs]).numpy()
+
+
+@pytest.mark.parametrize("granularity", ["full_attn", "offload"])
+def test_llama_recompute_tracks_jax_loss_for_loss(granularity, request,
+                                                  monkeypatch):
+    """As the next test's LLaMA half ("full"), in the other forms."""
+    xs = _batches(3)
+    gran = "full" if granularity == "offload" else granularity
+    if granularity == "offload":
+        request.getfixturevalue("offload")
+        from paddle_tpu.distributed.fleet import recompute as jax_rc
+        monkeypatch.setattr(jax_rc, "recompute", functools.partial(
+            jax_rc.recompute, offload=True))
+    P.seed(0)
+    jcfg = JaxConfig(**TINY, recompute=True, recompute_granularity=gran)
+    jm = JaxLlama(jcfg)
+    cfg = LlamaConfig(**TINY, recompute=True, recompute_granularity=gran)
+    tm = LlamaForCausalLM(cfg, device="cpu")
+    sd = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    tm.load_state_dict(state_dict_from_paddle_tpu(sd, cfg))
+    want = _jax_loop(jm, JaxCriterion(jcfg).bind(jm), xs)
+    fa_kernel.reset_stats()
+    got = _port_loop(tm, LlamaPretrainingCriterion(cfg).bind(tm), xs)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert fa_kernel.stats["plain_fwd_calls"] == STEPS * (
+        TINY["num_hidden_layers"] * (1 if gran == "full_attn" else 2))
 
 
 def test_recompute_tracks_jax_loss_for_loss():
@@ -256,11 +339,31 @@ def test_recompute_options_and_refusals():
     assert torch.allclose(y, seq(x))
     y.sum().backward()
     assert x.grad is not None
-    with pytest.raises(NotImplementedError, match="full_attn"):
-        recompute(lin, x, granularity="full_attn")
-    with pytest.raises(NotImplementedError, match="offload"):
-        recompute(lin, x, offload=True)
-    with pytest.raises(NotImplementedError, match="full_attn"):
-        LlamaForCausalLM(LlamaConfig(**TINY, recompute=True,
-                                     recompute_granularity="full_attn"),
-                         device="cpu")
+    # full_attn with nothing tagged recomputes all, as "full"; offload
+    # keeps the product
+    want = torch.autograd.grad(lin(x).square().sum(), lin.weight)[0]
+    for kw in (dict(granularity="full_attn"), dict(offload=True)):
+        got = torch.autograd.grad(recompute(lin, x, **kw).square().sum(),
+                                  lin.weight)[0]
+        assert torch.equal(got, want), kw
+    with pytest.raises(ValueError, match="granularity"):
+        recompute(lin, x, granularity="selective")
+    # a full_attn tag on what is no core's output (a copy) is counted as
+    # a miss and that core runs again in backward
+    q = torch.randn(1, 8, 2, 4, requires_grad=True)
+
+    def attend(t, copy):
+        out = flash_attention.flash_attention_bshd(t, t, t, causal=True)
+        return fleet.mark_saveable(out.clone() if copy else out).sum()
+
+    for copy in (False, True):
+        fa_kernel.reset_stats()
+        flash_attention.reset_stash_stats()
+        recompute(attend, q, copy, granularity="full_attn").backward()
+        assert flash_attention.stash_stats == {"kept": 1 - copy,
+                                               "missed": int(copy)}
+        assert fa_kernel.stats["plain_fwd_calls"] == 1 + copy
+    net = LlamaForCausalLM(LlamaConfig(**TINY, recompute=True,
+                                       recompute_granularity="full_attn"),
+                           device="cpu")
+    assert net.cfg.recompute_granularity == "full_attn"
