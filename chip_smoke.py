@@ -26,8 +26,9 @@ Phases, each of which passes or ends the script with a non-zero code:
    not rounded); its time beside the plain
    version's, one PyTorch library call's (a yardstick the port never
    calls) and the card's bound (K5 at LLaMA-2-7B's and Mistral's GQA
-   32:8 decode and prefill shapes and at the ragged phase's mixed step,
-   both forms in one token-packed call, from CUDA-graph replays).
+   32:8 decode and prefill shapes, at the speculative verify step's [8,
+   5] and at the ragged phase's mixed step, both forms in one
+   token-packed call, from CUDA-graph replays).
 3. ``masked``: K6 (the streamed masked forward) and the masked arms of
    K2/K3 the same way, at B 1, S 4096, H 32 over 8 kv heads with the
    window cut to 1024: the window, C=1 documents with the window, a C=2
@@ -149,8 +150,24 @@ Phases, each of which passes or ends the script with a non-zero code:
    fetch a step, K5's split, combine and tile kernels each layers x
    forwards times, the same dense checks (three greedy prompts past the
    window).
+18. ``spec``: ``ServingEngine(draft_model=, speculative_k=4)`` over the
+   serve phase's LLaMA-2-7B (full width and depth, bf16) and requests:
+   with no draft, a self-draft and a 2-layer draft of the same width
+   (the bucketed step), then that draft in the ragged step; then float32
+   at 2 layers of full width with a self-draft and, ragged, a 1-layer
+   draft. Each run warmed up (every class's CUDA graph captured) and
+   every request finishing with its count; K5's launches equal what each
+   class's dispatches make (the draft's proposal k+1 split-form steps a
+   draft layer, the verify step the tile form a layer), each graph
+   having captured exactly that; one host fetch a round; both page
+   pools back to their allocatable pages. bf16 speculative streams
+   equal the plain engine's or depart only within 0.5 of a dense tie
+   (counted and printed); float32 streams equal, the self-draft's
+   acceptance 1.0. Tokens/s, round p50, rounds, acceptance, fallbacks,
+   graphs, K5 per round and peak memory of each run; with ``--profile``
+   3 rounds of the 2-layer draft by kernel kind.
 
-18. ``generate``: ``cached_attention``'s K5 call (the static cache as a
+19. ``generate``: ``cached_attention``'s K5 call (the static cache as a
    page pool) against its plain version (the JAX package's einsum form)
    at the decode, prefill and speculative-verify shapes of the three
    models below, its int8 and window arms and a float32 prompt, two
@@ -174,6 +191,17 @@ Phases, each of which passes or ends the script with a non-zero code:
    speculative greedy departs from vanilla greedy only at a near-tie;
    prefill time, decode tokens/s, step p50, graphs and peak memory, and a
    3-step profile of the LLaMA decode step.
+20. ``attn_cases``: at GPT-3 1.3B's attention shape (B 2, S 2048, H 16,
+   D 128, bf16), the cases outside the kernels' arms: the returned
+   probabilities (flash attention's dense route) beside K1's ``out``;
+   dropout under a mask that keeps every link (the dense route) against
+   K1's dropout arm at the same seed, a seed one off rejected, the kept
+   share within 3 sigma of 1 - p; causal ``flash_attn_unpadded`` with
+   different q and k boundaries through K6's two FlashMask bands and the
+   banded K2/K3, launches exact and no dense call, against their plain
+   versions; the rotary embedding of ``incubate.nn.functional`` in bf16
+   against its float32 form. The dense route's count must read 0 after
+   each training, serving and generate phase.
 
 Serving phases report TTFT p50 and max, decode tokens/s (steps with no
 prefill chunk), output tokens/s, step time p50 and max and peak memory.
@@ -592,10 +620,13 @@ def kernel_phase(dev="cuda"):
               flush=True)
 
     timings = {}
+    # the speculative verify step: every decode lane with k + 1 = 5 queries
+    verify = [(c, SPEC_K + 1) for c, _ in decode]
     for name, lanes, nkv, rows in (("decode", decode, 32, 1),
                                    ("prefill", prefill, 32, 256),
                                    ("decode_gqa", decode, 8, 1),
-                                   ("prefill_gqa", prefill, 8, 256)):
+                                   ("prefill_gqa", prefill, 8, 256),
+                                   ("verify", verify, 32, SPEC_K + 1)):
         c = make_case(lanes, nh=32, nkv=nkv, dtype=bf16, seed=100, dev=dev)
         q4, qoff = k5_rect(c, rows)
         rargs = (q4, c["k"], c["v"], c["pt"], c["cl"], qoff)
@@ -3668,6 +3699,483 @@ def trace_steps(step, n_steps, what, smi):
                      for n, m, c in top])
 
 
+# -- speculative decoding in the engine --------------------------------------
+
+SPEC_K = 4
+SPEC_DRAFT_LAYERS = 2     # the small draft: LLaMA-2-7B's width, 2 layers
+SPEC_F32_LAYERS = 2       # the float32 pass: 2 layers at full width
+SPEC_F32_DRAFT_LAYERS = 1
+
+
+def class_k5(key, layers, draft_layers, tiled=True):
+    """K5's launches (calls and each form's) one dispatch of the engine's
+    step class ``key`` makes: a decode step the split form and its
+    combine a layer, a prefill chunk, a verify step and the draft's
+    catch-up the tile form a layer, the draft's proposal the split form
+    a draft layer and step, a ragged step both forms a layer. Without
+    ``tiled`` (float32 queries, which the tile form does not take) every
+    call is the split form's."""
+    kind, shape = key[0], key[1]
+    if kind == "draft_propose":
+        n = draft_layers * shape[1]        # k+1 steps of the draft
+    else:
+        n = draft_layers if kind == "draft_step" else layers
+    split = not tiled or kind in ("draft_propose", "ragged") or (
+        kind == "step" and shape[1] == 1)
+    tile = tiled and (kind == "ragged" or not split)
+    return {"kernel_launches": n, "decode_launches": n * split,
+            "combine_launches": n * split, "tile_launches": n * tile,
+            "plain_calls": 0}
+
+
+def k5_by_class(eng, before, layers, draft_layers, tiled=True):
+    """{class kind: {"dispatches": n, and the K5 launches they must have
+    made}} for the engine's dispatches since ``before`` (each class's
+    dispatch count then); on the card each class's graph must have
+    captured exactly its :func:`class_k5`."""
+    out = {}
+    for key, sc in eng._classes.items():
+        per = class_k5(key, layers, draft_layers, tiled)
+        if sc.graph is not None and sc.launches != per:
+            raise AssertionError(f"the graph of {key} captured K5 launches "
+                                 f"{sc.launches}, want {per}")
+        n = sc.dispatches - before.get(key, 0)
+        acc = out.setdefault(key[0], dict.fromkeys(("dispatches", *per), 0))
+        acc["dispatches"] += n
+        for k, v in per.items():
+            acc[k] += n * v
+    return out
+
+
+def step_margin(dense_row, req, step, a, b):
+    """How close the sampler's choice between tokens ``a`` and ``b`` at
+    token index ``step`` sits to a tie, in logits, from dense logits: for
+    a greedy request their gap; for a sampled one the smallest of the gap
+    of their scores (the scaled, filtered logits plus the request's
+    counter noise there, both kept) and each token's distance from the
+    filters' boundary (the lowest kept scaled logit): a token there is
+    kept or dropped by the least rounding, which flips the choice."""
+    import torch
+    from paddle_tpu_torch.serving.sampling import (_filter_top_k,
+                                                   _filter_top_p, lane_noise)
+    if not req.get("do_sample"):
+        return abs(float(dense_row[a]) - float(dense_row[b]))
+    dev, t = dense_row.device, req["temperature"]
+    scaled = (dense_row / t)[None]
+    keep = _filter_top_k(scaled, torch.tensor([req["top_k"]], device=dev))
+    keep &= _filter_top_p(scaled.masked_fill(~keep, float("-inf")),
+                          torch.tensor([req["top_p"]], device=dev))
+    scaled, keep = scaled[0], keep[0]
+    score = scaled + lane_noise(
+        torch.tensor([req["seed"] & 0x7FFFFFFF], device=dev),
+        torch.tensor([step], device=dev), dense_row.shape[0])[0]
+    edge = float(scaled[keep].min())
+    gaps = [abs(float(scaled[x]) - edge) * t for x in (a, b)]
+    if keep[a] and keep[b]:
+        gaps.append(abs(float(score[a]) - float(score[b])) * t)
+    return min(gaps)
+
+
+def departures(model, prompts, plain, spec, reqs, tie, what):
+    """Each request whose speculative stream departs from the plain
+    engine's: at the first departing token the two tokens must sit within
+    ``tie`` of each other in one dense float32 forward (:func:`
+    step_margin`): bf16's split and tile forms of K5 round apart, which
+    can flip only a near-tie. Returns [(request, token, margin)]."""
+    import numpy as np
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, plain, spec)):
+        d = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            continue
+        dense = dense_logits(model, np.concatenate(
+            [p, np.asarray(a[:d], np.int32)]))[-1]
+        out.append((i, d, step_margin(dense, reqs[i], d, a[d], b[d])))
+    far = [x for x in out if not x[2] <= tie]
+    if far:
+        raise AssertionError(
+            f"{what}: departures from the plain engine (request, token, "
+            f"dense margin) {out}; past a tie (<= {tie}): {far}")
+    return out
+
+
+def spec_requests(prompt_lens, sampled):
+    return [dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9,
+                 seed=1000 + i) if i in sampled else dict(seed=1000 + i)
+            for i in range(len(prompt_lens))]
+
+
+def spec_prompts(vocab, prompt_lens=PROMPT_LENS):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, vocab, n).astype(np.int32) for n in prompt_lens]
+
+
+def spec_engine_run(model, draft, cfg, smi, label, prompts, reqs, dev=None,
+                    *, k=SPEC_K, ragged=False, num_pages=KV_POOL_PAGES,
+                    new=NEW_TOKENS, profile=0):
+    """One engine over ``model`` (speculative with ``draft``, else
+    plain), warmed up so that every step class's graph is captured, then
+    ``prompts`` with the request arguments ``reqs``: every request
+    finishes with its count;
+    K5's launches equal what each class's dispatches make (:func:`
+    k5_by_class`), the plain version never; one host fetch a round; each
+    dispatch a graph replay on the card. Returns (tokens per request,
+    readings)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving import attention as A
+
+    on_card = torch.device(dev or "cuda").type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    spec = draft is not None
+    layers = cfg.num_hidden_layers
+    dlayers = draft.cfg.num_hidden_layers if spec else 0
+    eng = ServingEngine(model, page_size=PAGE_SIZE, num_pages=num_pages,
+                        max_batch=8, prefill_chunk=256, device=dev,
+                        ragged=ragged, draft_model=draft,
+                        speculative_k=k if spec else None)
+    warm_up(eng, cfg.vocab_size)
+    m = eng.metrics
+    names = ("spec_rounds", "spec_draft_tokens", "spec_accepted_tokens",
+             "spec_fallbacks", "step_fetches", "graph_replays",
+             "graphs_captured", "step_dispatches", "prefill_chunks")
+    m0 = {n: getattr(m, n).value for n in names}
+    before = {key: sc.dispatches for key, sc in eng._classes.items()}
+    A.reset_stats()
+    t_start = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=new, **r)
+            for p, r in zip(prompts, reqs)]
+    step_s, round_s = [], []
+    while not eng.scheduler.all_done():
+        chunks = m.prefill_chunks.value
+        t = time.perf_counter()
+        eng.step()
+        dt = time.perf_counter() - t
+        step_s.append(dt)
+        if m.prefill_chunks.value == chunks:
+            round_s.append(dt)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    d = {n: getattr(m, n).value - m0[n] for n in names}
+    res = eng.results()
+    tokens = [res[r]["tokens"] for r in rids]
+    for rid, toks in zip(rids, tokens):
+        if res[rid]["finish_reason"] != "length" or len(toks) != new:
+            raise AssertionError(f"{label}: request {rid} finished "
+                                 f"{res[rid]['finish_reason']} with "
+                                 f"{len(toks)} tokens")
+    counts = dict(A.stats)
+    tiled = cfg.dtype == "bfloat16"
+    by_kind = k5_by_class(eng, before, layers, dlayers, tiled)
+    want = {k: sum(v[k] for v in by_kind.values()) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: K5 counts {counts}, the classes' "
+                             f"dispatches make {want} ({by_kind})")
+    rounds = d["spec_rounds"]
+    per_round = {}
+    if spec:
+        if ragged:
+            ok = d["step_fetches"] == len(step_s)
+        else:
+            ok = d["step_fetches"] == rounds + d["prefill_chunks"] or \
+                d["spec_fallbacks"]
+        if not rounds or not ok:
+            raise AssertionError(f"{label}: {d['step_fetches']} fetches for "
+                                 f"{rounds} rounds and {d['prefill_chunks']} "
+                                 f"prefill chunks in {len(step_s)} steps")
+        # each bucketed round is one proposal (k+1 split-form steps a
+        # draft layer) and one verify (the tile form a layer); the draft's
+        # catch-ups come on top
+        per_round = {kind: {f: v[f] / rounds for f in (
+            "dispatches", "decode_launches", "combine_launches",
+            "tile_launches")} for kind, v in by_kind.items()
+            if kind.startswith("draft") or kind == "verify"}
+        exact = {"draft_propose": dlayers * (k + 1), "verify": layers}
+        for kind, n in exact.items():
+            got = per_round.get(kind, {})
+            form = "decode_launches" if kind == "draft_propose" or \
+                not tiled else "tile_launches"
+            if not ragged or kind == "draft_propose":
+                if got.get("dispatches") != 1.0 or got.get(form) != n:
+                    raise AssertionError(f"{label}: {kind} per round "
+                                         f"{got}, want one dispatch of {n}")
+    if on_card and d["graph_replays"] != d["step_dispatches"]:
+        raise AssertionError(f"{label}: {d['graph_replays']} graph replays "
+                             f"for {d['step_dispatches']} dispatches")
+    for c in (eng.cache, eng._draft_cache):
+        if c is not None and c.free_pages != c.allocatable_pages:
+            raise AssertionError(f"{label}: a page pool did not return "
+                                 "to its allocatable pages")
+    out = dict(
+        label=label, ragged=ragged, k=k if spec else 0,
+        draft_layers=dlayers, wall_s=wall,
+        tok_s=len(rids) * new / wall,
+        round_p50_s=(float(np.percentile(round_s, 50)) if round_s
+                     else None),
+        steps=len(step_s), rounds=rounds,
+        acceptance=(d["spec_accepted_tokens"] / d["spec_draft_tokens"]
+                    if d["spec_draft_tokens"] else None),
+        drafted=d["spec_draft_tokens"], accepted=d["spec_accepted_tokens"],
+        fallbacks=d["spec_fallbacks"], fetches=d["step_fetches"],
+        prefill_chunks=d["prefill_chunks"],
+        graphs_captured=m.graphs_captured.value,
+        graph_replays=d["graph_replays"], k5=counts,
+        k5_per_round=per_round,
+        verify_launches=by_kind.get("verify", {}).get("kernel_launches",
+                                                      0),
+        peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                      if on_card else None))
+    print(f"spec {label} [{smi}]: {out['tok_s']:.1f} tok/s over "
+          f"{wall:.3f} s, {len(step_s)} steps, round (decode step) p50 "
+          f"{out['round_p50_s']}, {rounds} rounds, acceptance "
+          f"{out['acceptance']} ({d['spec_accepted_tokens']} of "
+          f"{d['spec_draft_tokens']}), fallbacks {d['spec_fallbacks']}; "
+          f"graphs {out['graphs_captured']} captured, "
+          f"{d['graph_replays']} replayed; fetches {d['step_fetches']} "
+          f"({d['prefill_chunks']} prefill chunks); K5 {counts}, per round "
+          f"{per_round}; peak {out['peak_mem_gib']} GiB of 79.18",
+          flush=True)
+    if profile and on_card:
+        out["profile"] = profile_decode(eng, cfg, profile, smi, label)
+    del eng
+    gc.collect()
+    return tokens, out
+
+
+def spec_phase(smi, dev=None, profile_steps=0, *, cfg=None, f32_cfg=None,
+               prompt_lens=PROMPT_LENS, sampled=SAMPLED,
+               num_pages=KV_POOL_PAGES, new=NEW_TOKENS):
+    """``ServingEngine(draft_model=, speculative_k=4)`` over LLaMA-2-7B at
+    full width and depth, bf16: the serve phase's requests with no draft,
+    with a self-draft and with a 2-layer draft of the same width, then
+    the ragged step with that draft; each speculative stream equal to
+    the plain one or departing only at a near-tie (:func:`departures`).
+    Then float32 at 2 layers of full width: a self-draft (every proposal
+    accepted) and, ragged, a 1-layer draft, both streams equal to the
+    plain engine's."""
+    import dataclasses
+
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = cfg or LlamaConfig.llama2_7b(dtype="bfloat16",
+                                       use_flash_attention=False)
+    f32_cfg = f32_cfg or LlamaConfig.llama2_7b(
+        num_hidden_layers=SPEC_F32_LAYERS, dtype="float32",
+        use_flash_attention=False)
+    reqs = spec_requests(prompt_lens, sampled)
+    res = {}
+
+    def pair(c, draft_layers, seed):
+        t0 = time.perf_counter()
+        model = LlamaForCausalLM(c, device=dev, seed=seed)
+        draft = LlamaForCausalLM(dataclasses.replace(
+            c, num_hidden_layers=draft_layers), device=dev, seed=seed + 1)
+        model.eval()
+        draft.eval()
+        print(f"spec: target {c.num_hidden_layers} layers, draft "
+              f"{draft_layers} of width {c.hidden_size}, {c.dtype}, built "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        return model, draft, spec_prompts(c.vocab_size, prompt_lens)
+
+    model, draft, prompts = pair(cfg, SPEC_DRAFT_LAYERS, 0)
+    kw = dict(num_pages=num_pages, new=new)
+    plain, res["plain"] = spec_engine_run(model, None, cfg, smi, "plain",
+                                          prompts, reqs, dev, **kw)
+    for name, d, ragged, prof in (
+            ("self", model, False, 0),
+            ("draft2", draft, False, profile_steps),
+            ("draft2_ragged", draft, True, 0)):
+        toks, res[name] = spec_engine_run(model, d, cfg, smi, name, prompts,
+                                          reqs, dev, ragged=ragged,
+                                          profile=prof, **kw)
+        res[name]["departures"] = departures(
+            model, prompts, plain, toks, reqs, MARGIN, f"spec {name}")
+        print(f"spec {name}: {sum(a == b for a, b in zip(plain, toks))} of "
+              f"{len(toks)} streams equal to the plain engine's; "
+              f"departures (request, token, dense margin <= {MARGIN}): "
+              f"{res[name]['departures']}", flush=True)
+    del model, draft
+    gc.collect()
+    if torch.device(dev or "cuda").type == "cuda":
+        torch.cuda.empty_cache()
+    model, draft, prompts = pair(f32_cfg, SPEC_F32_DRAFT_LAYERS, 2)
+    plain, res["f32_plain"] = spec_engine_run(model, None, f32_cfg, smi,
+                                              "f32 plain", prompts, reqs,
+                                              dev, **kw)
+    for name, d, ragged in (("f32_self", model, False),
+                            ("f32_draft1_ragged", draft, True)):
+        toks, res[name] = spec_engine_run(model, d, f32_cfg, smi, name,
+                                          prompts, reqs, dev, ragged=ragged,
+                                          **kw)
+        if toks != plain:
+            raise AssertionError(f"spec {name}: float32 streams differ "
+                                 "from the plain engine's")
+    if res["f32_self"]["acceptance"] != 1.0:
+        raise AssertionError(f"spec f32_self: acceptance "
+                             f"{res['f32_self']['acceptance']}, not 1.0")
+    print(f"spec float32 [{smi}]: {SPEC_F32_LAYERS} layers of width "
+          f"{f32_cfg.hidden_size}: self-draft and ragged "
+          f"{SPEC_F32_DRAFT_LAYERS}-layer draft streams equal to the plain "
+          f"engine's, self-draft acceptance 1.0", flush=True)
+    return res
+
+
+# -- the attention cases outside the kernels' arms ---------------------------
+
+ATTN_SHAPE = (2, 2048, 16, HEAD_DIM)      # GPT-3 1.3B's attention, bf16
+ATTN_DROP = 0.1
+ATTN_Q_LENS, ATTN_K_LENS = (1000, 1500, 1596), (1400, 900, 1796)
+
+
+def attn_cases_phase(dev="cuda", shape=ATTN_SHAPE, q_lens=ATTN_Q_LENS,
+                     k_lens=ATTN_K_LENS):
+    """B1-B4 on the card: the returned probabilities (the dense route)
+    beside K1's ``out``; dropout under a mask that keeps every link (the
+    dense route) against K1's dropout arm at the same seed, a seed one
+    off rejected, and the kept share of the live links; causal
+    ``flash_attn_unpadded`` with different q and k boundaries through
+    K6's two bands and the banded K2/K3 (launches exact, no dense call)
+    against their plain versions; the rotary embedding in bf16 against
+    its float32 form, each style and table form."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_rotary_position_embedding as rope
+    from paddle_tpu_torch.nn.functional import (_cross_causal_bands,
+                                                flash_attn_unpadded)
+    from paddle_tpu_torch.ops import fa_kernel as FK
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    b, s, h, d = shape
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def rnd(*sh):
+        return torch.randn(*sh, generator=g, device=dev).to(bf16)
+    q, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
+    res = {}
+    # B1
+    FK.reset_stats()
+    dense0 = FA.stats["dense"]
+    want = FA.flash_attention_bshd(q, k, v, causal=True)
+    got, probs = FA.flash_attention_bshd(q, k, v, causal=True,
+                                         return_probs=True)
+    if FA.stats["dense"] != dense0 + 1 or FK.stats["fwd_launches"] != 1:
+        raise AssertionError(f"B1 routes: dense {FA.stats['dense'] - dense0}"
+                             f", K1 {FK.stats['fwd_launches']}")
+    ratio = k5_ratio(got, want, BF16_TOL)
+    rows = probs.float().sum(-1)
+    res["b1"] = dict(ratio=ratio, row_sum_err=(rows - 1).abs().max().item())
+    if not ratio <= 1.0 or res["b1"]["row_sum_err"] > 2e-2:
+        raise AssertionError(f"B1: out against K1's ratio {ratio}, "
+                             f"probability rows off 1 by "
+                             f"{res['b1']['row_sum_err']}")
+    del probs, rows
+    # B2: an all-keep mask sends dropout to the dense route; K1's arm at
+    # the same seed must draw the same links
+    seed = DROP_SEED
+    ones = torch.ones(s, s, dtype=torch.bool, device=dev)
+    k1 = FA.flash_attention_bshd(q, k, v, causal=True, dropout_p=ATTN_DROP,
+                                 seed=seed)
+    dense = FA.flash_attention_bshd(q, k, v, mask=ones, causal=True,
+                                    dropout_p=ATTN_DROP, seed=seed)
+    fault = FA.flash_attention_bshd(q, k, v, mask=ones, causal=True,
+                                    dropout_p=ATTN_DROP, seed=seed - 1)
+    ratio, fault_ratio = (k5_ratio(x, k1, BF16_TOL) for x in (dense, fault))
+    _, undropped = FA.dense_attention(q, k, v, causal=True,
+                                      return_probs=True)
+    _, dropped = FA.dense_attention(q, k, v, causal=True,
+                                    dropout_p=ATTN_DROP, seed=seed,
+                                    return_probs=True)
+    live = undropped > 0
+    n = int(live.sum())
+    share = int(((dropped > 0) & live).sum()) / n
+    sigma = (ATTN_DROP * (1 - ATTN_DROP) / n) ** 0.5
+    del undropped, dropped, live
+    res["b2"] = dict(ratio=ratio, fault_ratio=fault_ratio, kept=share,
+                     sigma=sigma)
+    if not (ratio <= 1.0 < fault_ratio
+            and abs(share - (1 - ATTN_DROP)) <= 3 * sigma):
+        raise AssertionError(f"B2: {res['b2']}")
+    # B3 through the entry a user calls, with gradients
+    cq = torch.tensor(np.cumsum([0, *q_lens]), dtype=torch.int32,
+                      device=dev)
+    ck = torch.tensor(np.cumsum([0, *k_lens]), dtype=torch.int32,
+                      device=dev)
+    tq, tk = int(cq[-1]), int(ck[-1])
+    x = [rnd(n_, h, d).requires_grad_() for n_ in (tq, tk, tk)]
+    do = rnd(tq, h, d)
+    FK.reset_stats()
+    dense0 = FA.stats["dense"]
+    out, _ = flash_attn_unpadded(*x, cq, ck, max(q_lens), max(k_lens),
+                                 causal=True)
+    out.backward(do)
+    counts = dict(FK.stats)
+    check_counts(counts, {"fwd_launches": 0, "stream_fwd_launches": 1,
+                          "dq_launches": 1, "dkv_launches": 1,
+                          "seg_arm_launches": 0, "drop_arm_launches": 0},
+                 "B3 flash_attn_unpadded cross-packed causal")
+    if FA.stats["dense"] != dense0:
+        raise AssertionError("B3 took the dense route")
+    pq, pk = (-tq) % 128, (-tk) % 128
+    bands = _cross_causal_bands(cq, ck, tk, tq + pq, tk + pk)
+    fm = dict(zip(("fm_start", "fm_end", "fm_start2", "fm_end2"), bands))
+    qp, kp, vp, dop = (F.pad(t.detach(), (0, 0, 0, 0, 0, n_))[None]
+                       for t, n_ in zip((*x, do), (pq, pk, pk, pq)))
+    # the backward's plain version from the out and lse the kernels gave
+    # it (K6 again on the same inputs: the same bits), so that each
+    # kernel is held to its own arithmetic
+    gout, glse = FK.fa_forward(qp, kp, vp, return_lse=True, **fm)
+    if not torch.equal(gout[0, :tq], out.detach()):
+        raise AssertionError("B3: K6 gave other bits on the same inputs")
+    wout, wlse = FK.fa_forward_plain(qp, kp, vp, fm=bands, return_lse=True)
+    wdq, wdk, wdv = FK.fa_backward_plain(qp, kp, vp, gout, glse, dop,
+                                         fm=bands)
+    got = dict(out=gout, lse=glse,
+               **{n_: F.pad(t.grad, (0, 0, 0, 0, 0, p_))[None]
+                  for n_, t, p_ in zip(("dq", "dk", "dv"), x,
+                                       (pq, pk, pk))})
+    want = dict(out=wout, lse=wlse, dq=wdq, dk=wdk, dv=wdv)
+    readings, _, _ = masked_check("B3 cross-packed causal", qp, kp, vp, dop,
+                                  dict(causal=False, fm=bands), got, want)
+    res["b3"] = dict(readings, launches=counts, tq=tq, tk=tk)
+    del gout, glse, wout, wlse, wdq, wdk, wdv, got, want
+    # B4
+    worst = 0.0
+    pos = torch.randint(0, 4096, (b, s), generator=g, device=dev)
+    tab_s, tab_c = (torch.randn(4096, d, generator=g, device=dev)
+                    for _ in range(2))
+    for neox in (True, False):
+        for tables, with_pos in ((False, True), (False, False),
+                                 (True, True)):
+            kw = dict(position_ids=pos if with_pos else None,
+                      use_neox_rotary_style=neox)
+            if tables:
+                kw.update(sin=tab_s, cos=tab_c)
+            lo = rope(q, k, v, **kw)
+            hi = rope(q.float(), k.float(), v.float(), **kw)
+            worst = max(worst, max(k5_ratio(a_, b_, 2.0 ** -8)
+                                   for a_, b_ in zip(lo, hi)))
+    res["b4_ratio"] = worst
+    if not worst <= 1.0:
+        raise AssertionError(f"B4: bf16 rope off its float32 form: ratio "
+                             f"{worst}")
+    print(f"attn_cases ok: B1 return_probs out vs K1 ratio "
+          f"{res['b1']['ratio']:.3f}; B2 all-keep mask + dropout vs K1's "
+          f"arm ratio {res['b2']['ratio']:.3f} (seed one off "
+          f"{res['b2']['fault_ratio']:.1f}), kept {share:.5f} (1 - p = "
+          f"{1 - ATTN_DROP}, sigma {sigma:.2e}); B3 cross-packed causal "
+          f"{tq} x {tk}: K6 1, K2 1, K3 1, dense 0, {readings}; B4 rope "
+          f"ratio {worst:.3f}", flush=True)
+    return res
+
+
 # -- generate() --------------------------------------------------------------
 
 # LLaMA-2-7B: batch 8 x 512-token prompts, 128 new tokens; beams: batch 2 x
@@ -4599,6 +5107,9 @@ def main(argv=None):
            "cuda": torch.version.cuda, "build_s": build_s,
            "hgmma": hgmma, "phase_s": {}}
 
+    from paddle_tpu_torch.ops import flash_attention as FA
+    res["dense_after"] = {}
+
     def phase(name, fn, *a, **kw):
         t0 = time.perf_counter()
         out = fn(*a, **kw)
@@ -4606,6 +5117,13 @@ def main(argv=None):
         torch.cuda.empty_cache()
         res["phase_s"][name] = time.perf_counter() - t0
         print(f"phase {name}: {res['phase_s'][name]:.1f} s", flush=True)
+        if name in DENSE_FREE:
+            # the dense route's count since the start of the run
+            res["dense_after"][name] = FA.stats["dense"]
+            if FA.stats["dense"]:
+                raise AssertionError(f"phase {name}: flash attention took "
+                                     f"the dense route {FA.stats['dense']} "
+                                     "times")
         return out
 
     if "kernels" in phases:
@@ -4697,9 +5215,17 @@ def main(argv=None):
             profile_steps=args.profile, label="mistral_7b", ragged=True,
             prompt_lens=RAGGED_PROMPT_LENS, sampled=RAGGED_SAMPLED,
             num_pages=RAGGED_POOL_PAGES, max_seq_len=RAGGED_MAX_SEQ)
+    if "spec" in phases:
+        res["spec"] = phase("spec", spec_phase, smi,
+                            profile_steps=args.profile)
     if "generate" in phases:
         res["generate"] = phase("generate", generate_phase, smi,
                                 profile_steps=args.profile)
+    if res["dense_after"]:
+        print(f"dense route: 0 calls after each of "
+              f"{', '.join(res['dense_after'])}", flush=True)
+    if "attn_cases" in phases:
+        res["attn_cases"] = phase("attn_cases", attn_cases_phase)
 
     kernels = kernel_rows(res)
     if args.out:
@@ -4719,7 +5245,12 @@ def main(argv=None):
 
 PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
           "mistral_path", "gpt", "gpt_path", "fit", "full_attn", "offload",
-          "optimizers", "workers", "serve", "ragged", "generate")
+          "optimizers", "workers", "serve", "ragged", "spec", "generate",
+          "attn_cases")
+# the phases of the main paths (training, serving, generate): none of them
+# may take flash attention's dense route
+DENSE_FREE = ("train", "mistral", "gpt", "fit", "full_attn", "offload",
+              "serve", "ragged", "spec", "generate")
 
 
 def kernel_rows(res):
@@ -4765,6 +5296,19 @@ def kernel_rows(res):
             max_abs_err=worst_err, ms=rg["ms"], plain_ms=rg["plain_ms"],
             bound_ms=rg["bound_ms"], bound_by=rg["bound_by"],
             library_ms=rg["library_ms"]))
+    if k5:
+        # the engine's speculative verify step ([8, k+1], the tile form):
+        # launches from the self-draft run's verify replays
+        t = timings["verify"]
+        rows.append(dict(
+            name="ragged_paged_attention_engine_verify", route="cuda",
+            source="paddle_tpu_torch/serving/csrc/ragged_paged_attention.cu",
+            replaces="paddle_tpu/serving/attention.py:289",
+            launches=res.get("spec", {}).get("self", {}).get(
+                "verify_launches"),
+            max_abs_err=worst_err,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}))
     gen = res.get("generate")
     if gen:
         # cached_attention's K5 call at generate's LLaMA-2-7B decode shape:

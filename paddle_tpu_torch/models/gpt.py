@@ -9,7 +9,8 @@ Attention runs through ``scaled_dot_product_attention`` (causal): K1-K3
 on the card, a bool key-padding ``attn_mask [B, 1, 1, S]`` (right-padded
 rows) on their segment arms, attention dropout in training on their
 counter-hash arms; ``attn_mask_startend_row_indices`` (FlashMask) runs
-through ``flashmask_attention`` (K6) with attention dropout off.
+through ``flashmask_attention`` (K6), with attention dropout in training
+through its dense route (the kernels' dropout arms take no band).
 
 Randomness: :class:`GPTForCausalLM` owns one ``torch.Generator`` on its
 device, seeded with ``seed``. It draws the weights (N(0, 0.02) for every
@@ -123,7 +124,8 @@ class GPTAttention(nn.Module):
                     "mutually exclusive")
             out = flashmask_attention(
                 q, k, v, startend_row_indices=startend_row_indices,
-                dropout=self.drop, causal=True, training=self.training)
+                dropout=self.drop, causal=True, training=self.training,
+                seed=seed)
         else:
             out = scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, is_causal=True,
@@ -196,14 +198,12 @@ class GPTModel(nn.Module):
                                 for _ in range(cfg.num_hidden_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
 
-    def attention_seeds(self, flashmask=False):
+    def attention_seeds(self):
         """One attention-dropout seed per layer for this forward, drawn
         from the model's generator in one fetch; None for each layer when
-        attention dropout is off (outside training, p = 0, or a FlashMask
-        forward, whose attention takes no dropout)."""
+        attention dropout is off (outside training, or p = 0)."""
         n = self.cfg.num_hidden_layers
-        if (not self.training or not self.cfg.attention_dropout_prob
-                or flashmask):
+        if not self.training or not self.cfg.attention_dropout_prob:
             return [None] * n
         g = self.generator
         return torch.randint(0, _SEED_HIGH, (n,), generator=g,
@@ -215,8 +215,7 @@ class GPTModel(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
-        seeds = self.attention_seeds(
-            attn_mask_startend_row_indices is not None)
+        seeds = self.attention_seeds()
         for block, seed in zip(self.h, seeds):
             x = block(x, attn_mask=attn_mask,
                       startend_row_indices=attn_mask_startend_row_indices,

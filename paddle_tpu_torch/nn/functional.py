@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..amp.state import cast_for_op
-from ..ops.flash_attention import (flash_attention,
+from ..ops.flash_attention import (_INT32_MAX, _flash_core_fm,
+                                   dense_attention, flash_attention,
                                    flash_attention_bshd, flashmask_attention)
 
 __all__ = ["rms_norm", "layer_norm", "gelu", "dropout", "swiglu",
@@ -144,40 +145,70 @@ def _segments_of(total, cu, pad, fill):
     return torch.cat([seg, seg.new_full((pad,), fill)])[None]
 
 
+def _cross_causal_bands(cq, ck, tk, tq_pad, tk_pad):
+    """Per-document causal attention of packed queries against packed
+    keys as K6's two FlashMask bands ``[1, 1, tk_pad]`` int32 (non-causal
+    form): key column j of document d at local position p masks query
+    rows ``[0, cq[d] + p)`` and ``[cq[d+1], tq_pad)``; a padding column
+    masks every row."""
+    cq, ck = cq.long(), ck.long()
+    seg = _segments_of(tk, ck, 0, 0)[0].long()
+    local = torch.arange(tk, device=ck.device) - ck[seg]
+    pad = tk_pad - tk
+
+    def band(real, fill):
+        return torch.cat([real, real.new_full((pad,), fill)]).to(
+            torch.int32)[None, None]
+
+    return (band(torch.zeros_like(seg), 0),
+            band(cq[seg] + local, _INT32_MAX),
+            band(cq[seg + 1], tq_pad),
+            band(torch.full_like(seg, _INT32_MAX), _INT32_MAX))
+
+
 def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                         max_seqlen_q, max_seqlen_k, scale=None, dropout=0.0,
                         causal=False, return_softmax=False, name=None, *,
                         seed=None):
     """Packed varlen attention: q/k/v ``[total, H, D]`` (k/v may carry
     fewer heads), ``cu_seqlens [B+1]``. Returns ``(out [total_q, H, D],
-    None)``. As the JAX package's kernel path (``_unpadded_kernel_path``):
-    the totals padded to a multiple of 128 with never-matching segment ids
-    (-1 on q, -2 on k), one batch row of segments through the segment arms
-    (K1 when the padded totals are equal, K6 when they differ), then the
-    padding cut off. ``causal`` is per-document causal only when
-    ``cu_seqlens_q is cu_seqlens_k`` (absolute positions then match); other
-    causal packing raises, as do ``return_softmax`` and dropout across
-    different padded totals (the JAX package runs those in XLA). Dropout
-    with equal totals runs K1-K3's counter-hash arms at ``seed``."""
-    if return_softmax:
-        raise NotImplementedError(
-            "flash_attn_unpadded(return_softmax=True) is not ported: the "
-            "kernels never hold the probabilities")
-    if causal and cu_seqlens_q is not cu_seqlens_k:
-        raise NotImplementedError(
-            "flash_attn_unpadded: causal packing with cu_seqlens_q that is "
-            "not cu_seqlens_k is not ported (absolute positions would not "
-            "be per-document positions; the JAX package runs it in XLA)")
+    None)``, or with ``return_softmax`` ``(out, probs [H, total_q,
+    total_k])``, the post-dropout probabilities. As the JAX package's
+    kernel path (``_unpadded_kernel_path``): the totals padded to a
+    multiple of 128 with never-matching segment ids (-1 on q, -2 on k),
+    one batch row of segments through the segment arms (K1 when the
+    padded totals are equal, K6 when they differ), then the padding cut
+    off. ``causal`` is per-document causal: with ``cu_seqlens_q is
+    cu_seqlens_k`` through the kernels' absolute causal limit, else (the
+    JAX package's per-document positions) as K6's two FlashMask bands
+    (:func:`_cross_causal_bands`) and the banded K2/K3. Dropout at
+    ``seed``: the counter-hash arms of K1-K3 when the padded totals are
+    equal; across different totals, beside the cross-packed causal mask
+    and with ``return_softmax``, the dense route of
+    :mod:`..ops.flash_attention` (no kernel takes those)."""
     q, k, v = query, key, value
     tq, tk = q.shape[0], k.shape[0]
     pq, pk = (-tq) % 128, (-tk) % 128
     cq = torch.as_tensor(cu_seqlens_q, device=q.device)
     ck = torch.as_tensor(cu_seqlens_k, device=k.device)
     sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    out = flash_attention_bshd(
-        F.pad(q, (0, 0, 0, 0, 0, pq))[None],
-        F.pad(k, (0, 0, 0, 0, 0, pk))[None],
-        F.pad(v, (0, 0, 0, 0, 0, pk))[None], causal=causal, scale=sc,
-        q_seg=_segments_of(tq, cq, pq, -1), kv_seg=_segments_of(tk, ck, pk, -2),
-        dropout_p=dropout, seed=seed)
-    return out[0, :tq], None
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq))[None]
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk))[None]
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk))[None]
+    if causal and cu_seqlens_q is not cu_seqlens_k:
+        bands = _cross_causal_bands(cq, ck, tk, tq + pq, tk + pk)
+        if dropout or return_softmax:
+            res = dense_attention(qp, kp, vp, scale=sc, fm=bands,
+                                  dropout_p=dropout, seed=seed,
+                                  return_probs=return_softmax)
+        else:
+            res = _flash_core_fm(qp, kp, vp, *bands, False, sc)
+    else:
+        res = flash_attention_bshd(
+            qp, kp, vp, causal=causal, scale=sc,
+            q_seg=_segments_of(tq, cq, pq, -1),
+            kv_seg=_segments_of(tk, ck, pk, -2), dropout_p=dropout,
+            seed=seed, return_probs=return_softmax)
+    if return_softmax:
+        return res[0][0, :tq], res[1][0, :, :tq, :tk]
+    return res[0, :tq], None

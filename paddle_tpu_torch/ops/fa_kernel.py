@@ -95,7 +95,10 @@ def check_fm_pairs(fm_start, fm_end, fm_start2, fm_end2):
 def check_dropout(dropout_p, seed, streamed):
     """``float(dropout_p)`` after the JAX kernels' checks: ``0 <= p < 1``,
     a seed with ``p > 0``, and no mask, band or ``Sq != Sk`` beside it
-    (``streamed``: dropout rides K1 and its backward only)."""
+    (``streamed``: dropout rides K1 and its backward only). The public
+    entries of :mod:`.flash_attention` never bring those to the kernels:
+    they send dropout beside a mask, a band or ``Sq != Sk`` to its dense
+    route."""
     p = float(dropout_p)
     if p > 0.0:
         if not p < 1.0:

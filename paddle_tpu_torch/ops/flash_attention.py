@@ -34,10 +34,18 @@ counter-hash arms of K1-K3 (``fa_kernel.keep_scale``) at the caller's
 from its own generator), which a training call must give: there is no
 draw from a global default. The JAX package keeps that
 arm behind ``PADDLE_TPU_FA_KERNEL_DROPOUT`` and otherwise draws a threefry
-mask in XLA, which torch cannot reproduce; the port has no switch. The
-cases outside the kernels' reach (dropout with a mask, FlashMask or
-``Sq != Sk``; returned probabilities) raise ``NotImplementedError`` naming
-what is missing; they are never densified or sent to a plain version.
+mask in XLA, which torch cannot reproduce; the port has no switch.
+
+The dense route (:func:`dense_attention`): the cases no kernel arm
+takes — dropout beside a dense mask, beside FlashMask bands or with
+``Sq != Sk``, and the returned probabilities — run as plain PyTorch on
+the tensors' device, differentiable by autograd: the counterpart of the
+JAX package's own XLA path for them (``_attention_ref`` / ``_ref_ext`` /
+``_fm_ref``), behind which it has no Pallas kernel either. Its dropout
+is the kernels' counter hash at ``seed=``, so with a mask that keeps
+every link it draws K1's dropout pattern bit for bit. ``stats["dense"]``
+counts its calls (the counterpart of the JAX package's counted
+``_fallback``); it never takes a case a kernel arm takes.
 """
 from __future__ import annotations
 
@@ -50,11 +58,15 @@ from . import fa_kernel
 from .fa_kernel import fa_backward, fa_forward
 
 __all__ = ["flash_attention_bshd", "flash_attention", "flash_core_lse",
-           "flashmask_attention", "flash_core_fm_lse",
+           "flashmask_attention", "flash_core_fm_lse", "dense_attention",
            "dispatch_stats", "reset_dispatch_stats", "StashRegion",
-           "stash_tagged", "stash_stats", "reset_stash_stats"]
+           "stash_tagged", "stash_stats", "reset_stash_stats", "stats"]
 
 _INT32_MAX = 2 ** 31 - 1
+
+# calls of the dense route (never reset by reset_dispatch_stats: a run
+# reads it to show that no kernel case went dense)
+stats = {"dense": 0}
 
 
 def dispatch_stats():
@@ -305,13 +317,45 @@ def _normalize_mask(m, b, h, sq, sk):
     return m.expand(m.shape[0], m.shape[1], sq, sk)
 
 
-def _refuse_dropout(dropout_p, why):
-    if why:
-        raise NotImplementedError(
-            f"flash attention in paddle_tpu_torch does not port dropout_p="
-            f"{dropout_p} with {why}: the counter-hash dropout arms of "
-            "K1-K3 take no dense mask, no FlashMask and no Sq != Sk (the "
-            "JAX package runs those cases in XLA with a threefry mask)")
+def dense_attention(q, k, v, *, causal=False, scale=None, mask=None, fm=(),
+                    q_seg=None, kv_seg=None, dropout_p=0.0, seed=None,
+                    want_lse=False, return_probs=False):
+    """The dense route: attention as plain PyTorch on the tensors' device,
+    for the cases no kernel arm takes. q ``[B, Sq, H, D]``, k/v ``[B, Sk,
+    HKV, D]``; the masking of :func:`.fa_kernel.masked_scores` (causal,
+    the FlashMask bands ``fm``, the additive ``mask``, segment ids);
+    dropout ``0 < p < 1`` keeps a link by :func:`.fa_kernel.keep_scale`
+    at ``seed`` (an int) and scales it by ``1 / (1 - p)``. The
+    arithmetic is the plain version of K1 (:func:`.fa_kernel.
+    fa_forward_plain`) op for op, so under a mask that keeps every link
+    the output is K1's plain dropout arm's bit for bit; rows with no live
+    key give 0 (lse -inf) and no NaN in the gradient. Returns ``out``,
+    then the undropped lse ``[B, H, Sq]`` with ``want_lse`` and the
+    post-dropout probabilities ``[B, H, Sq, Sk]`` in q's dtype with
+    ``return_probs``."""
+    stats["dense"] += 1
+    p_drop = fa_kernel.check_dropout(dropout_p, seed, streamed=False)
+    g = q.shape[2] // k.shape[2]
+    s = fa_kernel._scores(q, fa_kernel._repeat_kv(k, g),
+                          fa_kernel._scale(scale, q.shape[-1]), causal, mask,
+                          fm, q_seg, kv_seg)
+    live = torch.isfinite(s).any(-1, keepdim=True)
+    s = torch.where(live, s, torch.zeros((), dtype=s.dtype, device=s.device))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None]) * live
+    if p_drop:
+        b, sq, h, _ = q.shape
+        p = p * fa_kernel.keep_bhqk(seed, b, h, sq, k.shape[1], p_drop,
+                                    q.device)
+    probs = p.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs,
+                       fa_kernel._repeat_kv(v, g).to(q.dtype)).contiguous()
+    res = (out,)
+    if want_lse:
+        res += (torch.where(live[..., 0], lse, float("-inf")),)
+    if return_probs:
+        res += (probs,)
+    return res if len(res) > 1 else out
 
 
 def flash_attention_bshd(q, k, v, mask=None, causal=False, dropout_p=0.0,
@@ -326,13 +370,11 @@ def flash_attention_bshd(q, k, v, mask=None, causal=False, dropout_p=0.0,
     ``kv_seg`` int ``[B, Sq]`` / ``[B, Sk]``: packed segment ids (a
     negative id matches nothing). ``dropout_p`` in (0, 1) drops attention
     links through the kernels' counter hash at ``seed`` (an int, which
-    dropout needs). Without a gradient to take, only the forward runs (no
-    lse is written)."""
-    if return_probs:
-        raise NotImplementedError(
-            "flash attention in paddle_tpu_torch does not port return_probs "
-            "(return_softmax): the kernels never hold the [Sq, Sk] "
-            "probabilities")
+    dropout needs): in K1-K3's dropout arms, or beside a dense mask or
+    with ``Sq != Sk`` in the dense route. ``return_probs`` returns ``(out,
+    probs)``, the post-dropout probabilities ``[B, H, Sq, Sk]`` in q's
+    dtype, from the dense route (no kernel holds them). Without a
+    gradient to take, only the forward runs (no lse is written)."""
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     marr = None
@@ -350,12 +392,15 @@ def flash_attention_bshd(q, k, v, mask=None, causal=False, dropout_p=0.0,
     if dropout_p:
         if not 0.0 < dropout_p < 1.0:
             raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
-        _refuse_dropout(dropout_p, "a dense attention mask"
-                        if marr is not None else
-                        f"Sq={sq} != Sk={sk}" if sq != sk else None)
         if seed is None:
             raise ValueError("attention dropout draws its keep mask from a "
                              "counter hash at seed=: pass seed= (an int)")
+    if return_probs or (dropout_p and (marr is not None or sq != sk)):
+        return dense_attention(q, k, v, causal=causal, scale=scale,
+                               mask=marr, q_seg=q_seg, kv_seg=kv_seg,
+                               dropout_p=float(dropout_p), seed=seed,
+                               return_probs=return_probs)
+    if dropout_p:
         return _attend(q, k, v, causal, scale, q_seg=q_seg, kv_seg=kv_seg,
                        dropout_p=float(dropout_p), seed=seed)
     return _attend(q, k, v, causal, scale, mask=marr, q_seg=q_seg,
@@ -365,20 +410,22 @@ def flash_attention_bshd(q, k, v, mask=None, causal=False, dropout_p=0.0,
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, rng_name="",
                     training=True, name=None, *, seed=None):
-    """``paddle.nn.functional.flash_attention``: ``(out, None)``; dropout
-    only in training, at ``seed`` (an int, which it needs).
-    ``return_softmax`` raises (the kernels never hold the probabilities),
-    and so do ``fixed_seed_offset`` / ``rng_name``, which the JAX package
-    accepts and never reads."""
+    """``paddle.nn.functional.flash_attention``: ``(out, None)``, or with
+    ``return_softmax`` ``(out, probs)`` (the post-dropout probabilities
+    ``[B, H, Sq, Sk]``, from the dense route); dropout only in training,
+    at ``seed`` (an int, which it needs). ``fixed_seed_offset`` /
+    ``rng_name``, which the JAX package accepts and never reads, raise."""
     if fixed_seed_offset is not None or rng_name:
         raise NotImplementedError(
             "flash_attention(fixed_seed_offset=, rng_name=) is not ported: "
             "the dropout seed comes from seed=")
     drop_p = dropout if training else 0.0
+    if return_softmax:
+        return flash_attention_bshd(query, key, value, causal=causal,
+                                    dropout_p=drop_p, return_probs=True,
+                                    seed=seed)
     return flash_attention_bshd(query, key, value, causal=causal,
-                                dropout_p=drop_p,
-                                return_probs=return_softmax,
-                                seed=seed), None
+                                dropout_p=drop_p, seed=seed), None
 
 
 def flash_core_lse(q, k, v, causal, scale):
@@ -427,7 +474,7 @@ def _normalize_startend(startend_row_indices, sk):
 def flashmask_attention(query, key, value, startend_row_indices=None,
                         dropout=0.0, causal=True, window_size=None,
                         return_softmax_lse=False, fixed_seed_offset=None,
-                        rng_name="", training=True, name=None):
+                        rng_name="", training=True, name=None, *, seed=None):
     """``paddle.nn.functional.flashmask_attention``: attention with a
     compact column-wise mask (``[B, H|1, Sk, 1|2|4]`` int32 query-row
     bounds a key column; O(Sk) memory) instead of a dense one: C=1 the
@@ -437,17 +484,22 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     it folds into the bounds: alone as one band, into a C=1 index by a
     column-wise min, and with a C=2 index as the second band of the C=4
     form. Returns ``out`` or, with ``return_softmax_lse``, ``(out,
-    lse)``. Dropout in training (and its ``fixed_seed_offset`` /
-    ``rng_name``) raises: the kernels' dropout arms take no band."""
+    lse)`` (the undropped lse). Dropout in training draws links through
+    the kernels' counter hash at ``seed`` (an int, which it needs): with
+    bands in the dense route (the kernels' dropout arms take no band),
+    without them in K1's dropout arm. ``fixed_seed_offset`` /
+    ``rng_name``, which the JAX package accepts and never reads,
+    raise."""
     q, k, v = query, key, value
     sk = k.shape[1]
     drop_p = dropout if training else 0.0
-    if drop_p or fixed_seed_offset is not None or rng_name:
+    if fixed_seed_offset is not None or rng_name:
         raise NotImplementedError(
-            "flashmask_attention in paddle_tpu_torch does not port dropout "
-            "(fixed_seed_offset / rng_name seed it): the counter-hash "
-            "dropout arms of K1-K3 take no FlashMask band (the JAX package "
-            "runs it in XLA with a threefry mask)")
+            "flashmask_attention(fixed_seed_offset=, rng_name=) is not "
+            "ported: the dropout seed comes from seed=")
+    if drop_p and seed is None:
+        raise ValueError("attention dropout draws its keep mask from a "
+                         "counter hash at seed=: pass seed= (an int)")
     fm = None
     raw = startend_row_indices
     if raw is not None:
@@ -483,6 +535,13 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
                 "C=4 two-band form); C=4 already carries two bands and "
                 "cannot take a third")
     if fm is None:
+        if drop_p:
+            if q.shape[1] != sk:
+                return dense_attention(q, k, v, causal=causal,
+                                       dropout_p=drop_p, seed=seed,
+                                       want_lse=return_softmax_lse)
+            return _attend(q, k, v, causal, None, want_lse=return_softmax_lse,
+                           dropout_p=float(drop_p), seed=seed)
         if return_softmax_lse:
             return flash_core_lse(q, k, v, causal, None)
         return flash_attention_bshd(q, k, v, causal=causal)
@@ -492,6 +551,10 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
             f"startend_row_indices batch/head dims "
             f"{tuple(fm[0].shape[:2])} incompatible with q "
             f"[B={b}, H={h}]")
+    if drop_p:
+        return dense_attention(q, k, v, causal=causal, fm=tuple(fm),
+                               dropout_p=drop_p, seed=seed,
+                               want_lse=return_softmax_lse)
     fm = tuple(fm) + (None,) * (4 - len(fm))
     if return_softmax_lse:
         return flash_core_fm_lse(q, k, v, *fm, causal, None)

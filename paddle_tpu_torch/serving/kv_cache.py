@@ -155,6 +155,10 @@ class PagedKVCache:
     def has_seq(self, seq_id):
         return seq_id in self._tables
 
+    def live_seqs(self):
+        """The ids of every allocated sequence, oldest first."""
+        return list(self._tables)
+
     def seq_len(self, seq_id):
         return self._lens[seq_id]
 
@@ -244,9 +248,14 @@ class PagedKVCache:
         return slots, copies
 
     def free_tail(self, seq_id, new_len):
-        """Roll a sequence BACK to ``new_len`` tokens by accounting alone:
-        the K/V bytes stay in place, masked by context_len, and pages
-        that fall entirely beyond the new length are refcount-released."""
+        """Roll a sequence BACK to ``new_len`` tokens by accounting alone
+        (the speculative-decoding rejection path): the K/V bytes stay in
+        place, masked by context_len, and are overwritten when the
+        sequence grows again. Pages that fall entirely beyond the new
+        length are refcount-released: a page a fork still shares is only
+        decref'd (the co-owner keeps it; a verify round copy-on-writes a
+        shared tail page before it writes, so a rolled-back page is never
+        one a sibling still reads through this table)."""
         if seq_id not in self._tables:
             raise KeyError(f"free_tail: unknown sequence {seq_id!r}")
         new_len = int(new_len)

@@ -85,9 +85,15 @@ class ServingMetrics:
         self.step_program_classes = Gauge()   # distinct step shape classes
         self.graphs_captured = Counter()      # CUDA graphs captured
         self.graph_replays = Counter()        # CUDA graph replays
+        # speculative decoding
+        self.spec_rounds = Counter()          # draft-propose/verify rounds
+        self.spec_draft_tokens = Counter()    # proposals that could count
+        self.spec_accepted_tokens = Counter()  # proposals verified+emitted
+        self.spec_fallbacks = Counter()       # lanes demoted to plain
         self.queue_depth_gauge = Gauge()
         self.page_occupancy_gauge = Gauge()
         self.running_gauge = Gauge()          # running decode batch size
+        self.spec_acceptance_rate = Gauge()   # accepted/proposed, cumul.
         # per-page byte cost incl. int8 scale rows — what the
         # hbm_budget sizing divides by
         self.kv_page_bytes = Gauge()

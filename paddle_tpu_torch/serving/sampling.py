@@ -25,7 +25,8 @@ import torch
 
 from ..ops.fa_kernel import _mul32
 
-__all__ = ["fused_sample", "lane_noise", "lane_uniform"]
+__all__ = ["fused_sample", "fused_sample_multi", "lane_noise",
+           "lane_uniform"]
 
 _M32 = 0xFFFFFFFF
 
@@ -119,3 +120,29 @@ def fused_sample(logits, do_sample, temperature, top_k, top_p, seeds,
     dist = torch.where(do_sample[:, None], final, lg)
     lp = torch.log_softmax(dist, dim=-1)
     return tok.to(torch.int32), lp.gather(1, tok[:, None])[:, 0]
+
+
+def fused_sample_multi(logits, do_sample, temperature, top_k, top_p, seeds,
+                       steps0, *, sample_capable=True):
+    """Per-position fused sampling for the speculative verify step.
+
+    ``logits`` is ``[B, S, V]``; the per-lane parameters ``[B]`` apply to
+    every position, and position ``j`` of lane ``i`` draws with the
+    counter key ``(seeds[i], steps0[i] + j)``: the key the plain engine
+    uses for that request's token ``steps0[i] + j``. So the verify step
+    recomputes the very samples one-token decode would emit, and
+    acceptance is a prefix match against the draft's proposals.
+
+    Returns ``(tokens int32 [B, S], logprobs float32 [B, S])``."""
+    b, s, v = logits.shape
+    steps = (steps0[:, None].to(torch.int32)
+             + torch.arange(s, dtype=torch.int32,
+                            device=steps0.device)[None]).reshape(-1)
+
+    def rep(a):
+        return a.repeat_interleave(s, dim=0)
+
+    tok, lp = fused_sample(logits.reshape(b * s, v), rep(do_sample),
+                           rep(temperature), rep(top_k), rep(top_p),
+                           rep(seeds), steps, sample_capable=sample_capable)
+    return tok.reshape(b, s), lp.reshape(b, s)

@@ -24,8 +24,13 @@ which is what makes the no-starvation property hold), and ``preempt``
 requeues it at the FRONT of the waiting queue with its generated tokens
 kept, so recompute-prefill reproduces its logits.
 
-The JAX package's prefix-cache, speculative-reserve and migration
-branches are left out with the features they serve.
+Speculative decoding (``spec_reserve_tokens`` = k): a verify round
+appends up to k+1 slots a lane, so admission charges every request's
+worst-case round growth, and running lanes keep their next round's
+growth reserved: a verify burst never preempts an admitted decode.
+
+The JAX package's prefix-cache and migration branches are left out with
+the features they serve.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ class Request:        # field-wise __eq__ broadcast inside `in` checks
     n: int = 1                         # parallel samples (copy-on-fork)
     logprobs: bool = False             # emit per-token logprob in events
     request_id: str | None = None      # client/router trace id
+    speculative: bool | None = None    # False: opt out of spec rounds
     device_seed: int = 0               # per-request sampling seed
     req_id: int = field(default_factory=lambda: next(_req_ids))
     state: str = RequestState.WAITING
@@ -105,10 +111,11 @@ class SchedulerOutput:
 
 class Scheduler:
     def __init__(self, cache, *, max_batch=8, prefill_chunk=32,
-                 watermark_frac=0.05):
+                 watermark_frac=0.05, spec_reserve_tokens=0):
         self.cache = cache
         self.max_batch = int(max_batch)
         self.prefill_chunk = int(prefill_chunk)
+        self.spec_reserve_tokens = int(spec_reserve_tokens)
         self.watermark_pages = max(
             1, math.ceil(watermark_frac * cache.allocatable_pages))
         self.waiting: deque[Request] = deque()
@@ -174,17 +181,24 @@ class Scheduler:
         return expired
 
     def worst_case_need(self, req):
-        """Pages ``req`` still needs to cover its history plus one decode
-        token — the admission unit."""
-        need = self.cache.pages_for(len(req.token_history()) + 1)
+        """Pages ``req`` still needs to cover its history plus one full
+        decode round (1 token, or 1 + ``spec_reserve_tokens`` with
+        speculative decoding on) — the admission unit."""
+        need = self.cache.pages_for(len(req.token_history()) + 1
+                                    + self.spec_reserve_tokens)
         return max(0, need - self.cache.pages_held(req.seq_id))
 
     def _committed_pages(self):
         """Pages PROMISED to admitted requests but not yet pulled from
         the free list (their prefill chunks haven't run) — without this,
         back-to-back admissions in one iteration would all see the same
-        free count and oversubscribe the pool."""
-        return sum(self.worst_case_need(r) for r in self.prefill_queue)
+        free count and oversubscribe the pool. With speculative decoding
+        on, running lanes also reserve their next verify round's
+        worst-case growth."""
+        total = sum(self.worst_case_need(r) for r in self.prefill_queue)
+        if self.spec_reserve_tokens:
+            total += sum(self.worst_case_need(r) for r in self.running)
+        return total
 
     def _admit(self, now):
         committed = self._committed_pages()

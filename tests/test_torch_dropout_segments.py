@@ -307,16 +307,36 @@ def test_flash_attn_unpadded_matches_jax_with_grads(case, monkeypatch):
 
 
 def test_flash_attn_unpadded_refusals():
+    """What ``flash_attn_unpadded`` once refused now runs: causal packing
+    with ``cu_seqlens_q`` not ``cu_seqlens_k`` (K6's bands, equal to the
+    identical packing's result when the boundaries are equal), the
+    returned probabilities and dropout across different padded totals
+    (the dense route, the counter hash over the padded rows)."""
     q = torch.randn(20, 2, 16)
     cu = torch.tensor([0, 8, 20], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="cu_seqlens_q"):
-        TF.flash_attn_unpadded(q, q, q, cu, cu.clone(), 12, 12, causal=True)
-    with pytest.raises(NotImplementedError, match="return_softmax"):
-        TF.flash_attn_unpadded(q, q, q, cu, cu, 12, 12, return_softmax=True)
+    dense0 = TFA.stats["dense"]
+    _close(TF.flash_attn_unpadded(q, q, q, cu, cu.clone(), 12, 12,
+                                  causal=True)[0],
+           TF.flash_attn_unpadded(q, q, q, cu, cu, 12, 12, causal=True)[0],
+           ATOL, "cross-packed causal")
+    assert TFA.stats["dense"] == dense0
+    out, probs = TF.flash_attn_unpadded(q, q, q, cu, cu, 12, 12,
+                                        return_softmax=True)
+    assert probs.shape == (2, 20, 20) and TFA.stats["dense"] == dense0 + 1
+    _close(out, TF.flash_attn_unpadded(q, q, q, cu, cu, 12, 12)[0], ATOL,
+           "out beside the probabilities")
     k = torch.randn(140, 2, 16)
-    with pytest.raises(NotImplementedError, match="Sq=128 != Sk=256"):
-        TF.flash_attn_unpadded(q, k, k, cu, torch.tensor([0, 70, 140]),
-                               12, 70, dropout=0.1, seed=1)
+    ck = torch.tensor([0, 70, 140])
+    got, _ = TF.flash_attn_unpadded(q, k, k, cu, ck, 12, 70, dropout=0.1,
+                                    seed=1)
+    qs = torch.tensor([0] * 8 + [1] * 12 + [-1] * 108)[None]
+    ks = torch.tensor([0] * 70 + [1] * 70 + [-2] * 116)[None]
+    want = TFA.dense_attention(
+        torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 108))[None],
+        torch.nn.functional.pad(k, (0, 0, 0, 0, 0, 116))[None],
+        torch.nn.functional.pad(k, (0, 0, 0, 0, 0, 116))[None],
+        q_seg=qs, kv_seg=ks, dropout_p=0.1, seed=1)
+    _close(got, want[0, :20], 0.0, "dropout across padded totals")
     # equal padded totals: dropout runs the counter hash per document
     out, _ = TF.flash_attn_unpadded(q, q, q, cu, cu, 12, 12, dropout=0.3,
                                     seed=5, causal=True)
@@ -345,8 +365,9 @@ def test_flash_attention_takes_its_dropout_seed():
     _close(TFA.flash_attention(q, q, q, dropout=0.3, causal=True,
                                training=False)[0],
            TFA._attention_ref(q, q, q, causal=True), ATOL, "eval")
-    with pytest.raises(NotImplementedError, match="return_probs"):
-        TFA.flash_attention(q, q, q, return_softmax=True)
+    out, probs = TFA.flash_attention(q, q, q, return_softmax=True)
+    _close(out, TFA._attention_ref(q, q, q), ATOL, "return_softmax out")
+    _close(probs.sum(-1), torch.ones(1, 2, 16), ATOL, "probabilities")
     with pytest.raises(NotImplementedError, match="fixed_seed_offset"):
         TFA.flash_attention(q, q, q, fixed_seed_offset=torch.zeros(2))
 

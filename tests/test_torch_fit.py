@@ -85,8 +85,10 @@ def _recorder(base):
 
 
 def _jax_side(rows):
+    """The JAX fit; also returns the weights before it (numpy)."""
     P.seed(0)
     jm = JaxLlama(JaxConfig(**TINY))
+    sd0 = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
     model = P.Model(jm, inputs=["ids"], labels=["labels"])
     model.prepare(P.optimizer.AdamW(
         _sched(P.optimizer.lr), parameters=jm.parameters(),
@@ -97,13 +99,12 @@ def _jax_side(rows):
                               batch_size=BATCH, shuffle=False),
               epochs=1, verbose=0,
               callbacks=[P.callbacks.LRScheduler(), rec])
-    return jm, model, rec
+    return sd0, model, rec
 
 
-def _port_side(jm, rows):
+def _port_side(sd, rows):
     cfg = LlamaConfig(**TINY)
     tm = LlamaForCausalLM(cfg, device="cpu")
-    sd = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
     tm.load_state_dict(state_dict_from_paddle_tpu(sd, cfg))
     model = Model(tm, inputs=["ids"], labels=["labels"])
     model.prepare(AdamW(_sched(tlr), parameters=tm.parameters(),
@@ -118,10 +119,8 @@ def _port_side(jm, rows):
 
 def test_fit_evaluate_predict_match_jax():
     rows = _rows()
-    P.seed(0)
-    jm0 = JaxLlama(JaxConfig(**TINY))   # the weights before training
-    jm, jmodel, jrec = _jax_side(rows)
-    tmodel, trec = _port_side(jm0, rows)
+    sd0, jmodel, jrec = _jax_side(rows)
+    tmodel, trec = _port_side(sd0, rows)
     assert trec.lrs == jrec.lrs and len(trec.lrs) == ROWS // BATCH
     np.testing.assert_allclose(trec.losses, jrec.losses, atol=ATOL, rtol=0)
     assert tmodel._optimizer._clip_factor.item() < 1

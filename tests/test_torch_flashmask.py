@@ -294,8 +294,10 @@ def test_refusals_match_the_reference():
 def test_segment_and_dropout_arms_raise():
     """The bool key-padding mask runs as segment ids (keys 0 / -2, never a
     dense mask) and bshd's dropout as the counter hash; FlashMask's
-    dropout, which the kernels' dropout arms do not take, raises before
-    any plain version runs."""
+    dropout, which the kernels' dropout arms do not take, runs the dense
+    route at ``seed=`` (which it needs), with the window's bands and the
+    kernels' counter hash; ``fixed_seed_offset`` / ``rng_name`` raise
+    before anything runs."""
     q = torch.randn(1, 32, 4, 16)
     pad = torch.ones(1, 1, 1, 32, dtype=torch.bool)
     pad[..., 20:] = False
@@ -307,11 +309,21 @@ def test_segment_and_dropout_arms_raise():
            TFA._attention_ref_hash_dropout(q, q, q, 3, 0.1, causal=True),
            ATOL, "dropout")
     assert TK.stats["plain_fwd_calls"] == 2
-    for kw in (dict(dropout=0.1), dict(fixed_seed_offset=torch.zeros(2)),
+    for kw in (dict(fixed_seed_offset=torch.zeros(2)),
                dict(rng_name="local_seed")):
-        with pytest.raises(NotImplementedError, match="dropout"):
-            TF.flashmask_attention(q, q, q, window_size=3, **kw)
+        with pytest.raises(NotImplementedError, match="seed="):
+            TF.flashmask_attention(q, q, q, window_size=3, dropout=0.1,
+                                   seed=1, **kw)
+    with pytest.raises(ValueError, match="seed="):
+        TF.flashmask_attention(q, q, q, window_size=3, dropout=0.1)
     assert TK.stats["plain_fwd_calls"] == 2
+    dense0 = TFA.stats["dense"]
+    got = TF.flashmask_attention(q, q, q, window_size=3, dropout=0.1, seed=9)
+    assert TFA.stats["dense"] == dense0 + 1
+    win = torch.ones(32, 32, dtype=torch.bool).tril().triu(-3)
+    _close(got, TFA.dense_attention(q, q, q, mask=torch.where(
+        win, 0.0, float("-inf")), dropout_p=0.1, seed=9), 0.0,
+        "flashmask dropout against the window as a dense mask")
     # without training, flashmask_attention's dropout is off, as in JAX
     out = TF.flashmask_attention(q, q, q, window_size=3, dropout=0.1,
                                  training=False)

@@ -36,6 +36,7 @@ from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                      state_dict_to_paddle_tpu)
 from paddle_tpu_torch.models.gpt import count_params, flops_per_token
 from paddle_tpu_torch.ops import fa_kernel
+from paddle_tpu_torch.ops import flash_attention as TFA
 from paddle_tpu_torch.optimizer import AdamW
 
 LOGIT_ATOL = 1e-4
@@ -114,7 +115,9 @@ def test_tiny_gpt_logits_match_jax(head, masking):
         idx = _flashmask(SEQ)
         jargs["attn_mask_startend_row_indices"] = P.to_tensor(idx)
         targs["attn_mask_startend_row_indices"] = torch.from_numpy(idx)
-    want = np.asarray(jm(P.to_tensor(ids), **jargs)._data)
+    # one program (the JAX package's jit.to_static), not op by op
+    want = np.asarray(P.jit.to_static(lambda x: jm(x, **jargs))(
+        P.to_tensor(ids))._data)
     fa_kernel.reset_stats()
     with torch.no_grad():
         got = tm(torch.from_numpy(ids).long(), **targs).numpy()
@@ -254,7 +257,12 @@ def test_unported_gpt_paths_raise():
     net.train()
     ids = torch.zeros(1, 16, dtype=torch.long)
     idx = torch.from_numpy(_flashmask(16))
-    with pytest.raises(NotImplementedError, match="FlashMask"):
-        net(ids, attn_mask_startend_row_indices=idx)
+    # FlashMask with attention dropout in training: the dense route at
+    # the layer's seed from the model's generator
+    dense0 = TFA.stats["dense"]
+    train = net(ids, attn_mask_startend_row_indices=idx)
+    assert TFA.stats["dense"] == dense0 + net.cfg.num_hidden_layers
+    assert torch.isfinite(train).all()
     net.eval()
     assert net(ids, attn_mask_startend_row_indices=idx).shape == (1, 16, 256)
+    assert TFA.stats["dense"] == dense0 + net.cfg.num_hidden_layers

@@ -23,8 +23,9 @@ from paddle_tpu_torch.nn.functional import (dropout,
                                             scaled_dot_product_attention)
 from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
 from paddle_tpu_torch.ops.flash_attention import (
-    _attention_ref, _attention_ref_hash_dropout, flash_attention_bshd,
-    flash_core_lse)
+    _attention_ref, _attention_ref_hash_dropout, dense_attention,
+    flash_attention_bshd, flash_core_lse)
+from paddle_tpu_torch.ops.flash_attention import stats as dense_stats
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import PagedKVCache, ServingEngine
 
@@ -157,12 +158,27 @@ def test_kernel_wrappers_refuse_tensors_off_a_card():
     (dict(dropout_p=0.1, return_probs=True), "return_probs"),
     (dict(return_probs=True), "return_probs")])
 def test_flash_attention_refuses_the_unported_arms(kwargs, missing):
-    """What the kernels do not take raises, naming it: dropout beside a
-    dense mask (the JAX package draws a threefry mask in XLA there) and
-    the returned probabilities."""
+    """What the kernels do not take — dropout beside a dense mask (the
+    JAX package runs it in XLA) and the returned probabilities — runs
+    the counted dense route (``missing`` names the case), with the
+    kernels' counter hash at ``seed=``; without a seed, dropout raises."""
     q = torch.randn(1, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match=missing):
-        flash_attention_bshd(q, q, q, causal=True, **kwargs)
+    dense0 = dense_stats["dense"]
+    kw = dict(kwargs, seed=3) if kwargs.get("dropout_p") else kwargs
+    got = flash_attention_bshd(q, q, q, causal=True, **kw)
+    assert dense_stats["dense"] == dense0 + 1, missing
+    out = got[0] if kwargs.get("return_probs") else got
+    mask = kwargs.get("mask")
+    want = dense_attention(
+        q, q, q, causal=True, dropout_p=kwargs.get("dropout_p", 0.0),
+        seed=3, q_seg=kwargs.get("q_seg"), kv_seg=kwargs.get("kv_seg"),
+        mask=None if mask is None else torch.where(
+            mask.bool() if mask.dtype == torch.bool else mask == 0, 0.0,
+            float("-inf")))
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    if kwargs.get("dropout_p"):
+        with pytest.raises(ValueError, match="seed="):
+            flash_attention_bshd(q, q, q, causal=True, **kwargs)
 
 
 def test_cross_length_and_sdpa_options_are_refused_not_dropped():
@@ -191,8 +207,9 @@ def test_cross_length_and_sdpa_options_are_refused_not_dropped():
         scaled_dot_product_attention(q, q, q, dropout_p=0.1, is_causal=True,
                                      seed=7),
         _attention_ref_hash_dropout(q, q, q, 7, 0.1, causal=True))
-    with pytest.raises(NotImplementedError, match="Sq=8 != Sk=12"):
-        scaled_dot_product_attention(q, k, k, dropout_p=0.1, seed=7)
+    torch.testing.assert_close(
+        scaled_dot_product_attention(q, k, k, dropout_p=0.1, seed=7),
+        dense_attention(q, k, k, dropout_p=0.1, seed=7), rtol=0, atol=0)
     with pytest.raises(ValueError, match="generator"):
         dropout(q, 0.1)
     with pytest.raises(ValueError, match="seed="):

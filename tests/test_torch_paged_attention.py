@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.serving import attention as JA
@@ -73,13 +74,19 @@ def as_torch(c, int8=False, dtype=torch.float32):
     return k.to(dtype), v.to(dtype)
 
 
+# the JAX package's ragged entry jitted: one compile a shape, where op by
+# op it took seconds
+jax_ragged_ref = jax.jit(JA.ragged_paged_attention,
+                         static_argnames=("scale", "window", "spmd"))
+
+
 def jax_ragged(c, int8=False, kernel=False, **kw):
     """The JAX package's ragged entry (its gather reference), or its
     Pallas kernel on the per-token rows that entry builds for it."""
     k, v = as_jax(c, int8)
     q, pt, cl = (jnp.asarray(c[n]) for n in ("q", "pt", "cl"))
     if not kernel:
-        out = JA.ragged_paged_attention(
+        out = jax_ragged_ref(
             q, k, v, pt, cl, jnp.asarray(c["ql"]), jnp.asarray(c["qoff"]),
             **kw)
         return np.asarray(out, np.float32)
@@ -154,7 +161,9 @@ def test_rectangular_matches_jax_reference_and_kernel():
         jk, jv = as_jax(c, int8)
         args = (jnp.asarray(q), jk, jv, jnp.asarray(c["pt"]),
                 jnp.asarray(c["cl"]), jnp.asarray(qoff))
-        want = np.asarray(JA.paged_attention_ref(*args, scale=0.35))
+        # jitted: one compile, not one an op
+        want = np.asarray(jax.jit(JA.paged_attention_ref,
+                                  static_argnames="scale")(*args, scale=0.35))
         want_kernel = jax_rectangular_kernel(*args, scale=0.35)
         tk, tv = as_torch(c, int8)
         targs = (torch.from_numpy(q), tk, tv, torch.from_numpy(c["pt"]),

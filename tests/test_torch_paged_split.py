@@ -17,9 +17,9 @@ import torch
 
 import jax.numpy as jnp
 
-from paddle_tpu.serving import attention as JA
 from paddle_tpu_torch.serving import attention as TA
-from test_torch_paged_attention import MIXED, as_jax, as_torch, ragged_case
+from test_torch_paged_attention import (MIXED, as_jax, as_torch,
+                                        jax_ragged_ref, ragged_case)
 
 ATOL = 1e-5
 
@@ -118,7 +118,7 @@ def _token_args(c, int8=False, positions=None):
 
 def _jax_ref(c, int8, **kw):
     k, v = as_jax(c, int8)
-    out = JA.ragged_paged_attention(
+    out = jax_ragged_ref(
         jnp.asarray(c["q"]), k, v, jnp.asarray(c["pt"]),
         jnp.asarray(c["cl"]), jnp.asarray(c["ql"]), jnp.asarray(c["qoff"]),
         **kw)
@@ -151,19 +151,23 @@ def test_split_partials_and_combine_match_the_plain_and_jax(
 
 def test_rows_with_no_live_key_come_out_zero():
     """A lane whose queries sit past its context by more than the window
-    has no live key: every split empty, the combine gives exactly 0."""
-    c = ragged_case([(9, 1), (17, 6), (5, 2)], seed=21)
-    c["qoff"][2] = 30                       # positions 30, 31; ctx 5
+    has no live key: every split empty, the combine gives exactly 0. (The
+    case has the token and lane counts of the test above, so the JAX
+    reference compiled there serves it too.)"""
+    c = ragged_case([(1, 1), (9, 1), (17, 6), (23, 3), (5, 2)], nkv=2,
+                    pad_tokens=2, pad_lanes=1, seed=21)
+    c["qoff"][4] = 30                       # positions 30, 31; ctx 5
+    dead = slice(11, 13)                    # that lane's two tokens
     args = _token_args(c)
     kw = dict(scale=0.35, window=4)
     m, l, acc = TA.split_partials_plain(*args, split_keys=3, **kw)
     got = TA.combine_splits_plain(m, l, acc).numpy()
     plain = TA.ragged_paged_attention_plain(*args, **kw).numpy()
-    assert torch.isinf(m[-2:]).all() and not np.isnan(got).any()
-    np.testing.assert_array_equal(got[-2:], 0.0)
-    np.testing.assert_array_equal(plain[-2:], 0.0)
+    assert torch.isinf(m[dead]).all() and not np.isnan(got).any()
+    np.testing.assert_array_equal(got[dead], 0.0)
+    np.testing.assert_array_equal(plain[dead], 0.0)
     np.testing.assert_allclose(got, plain, atol=ATOL)
-    np.testing.assert_allclose(got[:-2], _jax_ref(c, False, **kw)[:-2],
+    np.testing.assert_allclose(got[:11], _jax_ref(c, False, **kw)[:11],
                                atol=ATOL)
 
 

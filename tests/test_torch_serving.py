@@ -434,6 +434,11 @@ def test_engine_sampling_forks_and_cancel():
     dict(chaos=object()), dict(host_pool=object()),
     dict(distill=object()), dict(mesh=object()), dict(tp_degree=2)])
 def test_unported_engine_arguments_raise(arg):
+    """The arguments outside the port raise NotImplementedError; the
+    speculative ones are ported and refuse what is wrong (a draft that
+    is no causal LM, a k without a draft)."""
     _, tm = _transplanted()
-    with pytest.raises(NotImplementedError):
+    want = (TypeError if "draft_model" in arg else
+            ValueError if "speculative_k" in arg else NotImplementedError)
+    with pytest.raises(want):
         ServingEngine(tm, num_pages=8, device="cpu", **arg)

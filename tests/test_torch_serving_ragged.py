@@ -27,12 +27,12 @@ import paddle_tpu as P
 from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.serving import ServingEngine as JaxServingEngine
-from paddle_tpu.serving import attention as JA
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      state_dict_from_paddle_tpu)
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving import attention as TA
-from test_torch_paged_attention import MIXED, as_jax, as_torch, ragged_case
+from test_torch_paged_attention import (MIXED, as_jax, as_torch,
+                                        jax_ragged_ref, ragged_case)
 
 TINY = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
             num_hidden_layers=2, num_attention_heads=4,
@@ -218,7 +218,7 @@ def test_the_plan_built_once_gives_the_ragged_entry(window):
     assert torch.equal(got, want)
     n = int(ql.sum())
     jk, jv = as_jax(c)
-    jwant = np.asarray(JA.ragged_paged_attention(
+    jwant = np.asarray(jax_ragged_ref(
         jnp.asarray(c["q"]), jk, jv, *(jnp.asarray(c[x]) for x in
                                         ("pt", "cl", "ql", "qoff")), **kw))
     np.testing.assert_allclose(got[:n].numpy(), jwant[:n], atol=1e-5)

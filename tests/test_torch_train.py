@@ -173,9 +173,11 @@ def test_fused_ce_keeps_float32_logits_in_bf16():
     lab = rng.integers(0, v, (b, s)).astype(np.int32)
     lab[1, 7] = -100
     jh, jw = (jnp.asarray(x, jnp.bfloat16) for x in (hid, w.T))
-    want, (jgh, jgw) = jax.value_and_grad(
-        _fused_ce_fn(-100, v, chunk), argnums=(0, 1))(jh, jw,
-                                                      jnp.asarray(lab))
+    # jitted: one compile, where op by op the scan's eager compiles took
+    # seconds
+    want, (jgh, jgw) = jax.jit(jax.value_and_grad(
+        _fused_ce_fn(-100, v, chunk), argnums=(0, 1)))(jh, jw,
+                                                       jnp.asarray(lab))
     th = torch.from_numpy(hid).bfloat16().requires_grad_()
     tw = torch.from_numpy(w).bfloat16().requires_grad_()
     got = _fused_ce(th, tw, torch.from_numpy(lab).long(), -100, chunk)
@@ -252,19 +254,26 @@ def test_packed_documents_step_by_hand_matches_jax():
     """``attn_mask_startend_row_indices`` with the window folded in
     (column-wise min), two steps by hand in both packages: forward,
     criterion, backward, the optimizer's step, clear_grad. The loss and
-    the first layer's q_proj / k_proj gradients agree."""
+    the first layer's q_proj / k_proj gradients agree. The JAX package's
+    forward and criterion run as one program (its ``jit.to_static``),
+    which its backward differentiates: op by op, the first step's eager
+    compiles took ~13 s of this test."""
     jm, tm, cfg = _mistral_pair()
     jcrit = JaxCriterion(JaxConfig.tiny(**MISTRAL))
     jopt = P.optimizer.AdamW(LR, parameters=jm.parameters())
+
+    @P.jit.to_static
+    def jax_loss(ids, pos, idx):
+        return jcrit(jm(ids, position_ids=pos,
+                        attn_mask_startend_row_indices=idx), ids)
     tcrit = LlamaPretrainingCriterion(cfg)
     topt = AdamW(LR, parameters=tm.parameters())
     jattn, tattn = jm.llama.layers[0].self_attn, tm.llama.layers[0].self_attn
     tm.train()
     for step in range(2):
         ids, pos, idx = _packed_batch(step, cfg.vocab_size)
-        jloss = jcrit(jm(P.to_tensor(ids), position_ids=P.to_tensor(pos),
-                         attn_mask_startend_row_indices=P.to_tensor(idx)),
-                      P.to_tensor(ids))
+        jloss = jax_loss(P.to_tensor(ids), P.to_tensor(pos),
+                         P.to_tensor(idx))
         jloss.backward()
         tids = torch.from_numpy(ids).long()
         tloss = tcrit(tm(tids, position_ids=torch.from_numpy(pos).long(),
