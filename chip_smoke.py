@@ -167,7 +167,27 @@ Phases, each of which passes or ends the script with a non-zero code:
    graphs, K5 per round and peak memory of each run; with ``--profile``
    3 rounds of the 2-layer draft by kernel kind.
 
-19. ``generate``: ``cached_attention``'s K5 call (the static cache as a
+19. ``prefix``: ``ServingEngine(prefix_cache=True, host_pool=
+   HostPagePool(...))`` over the serve phase's LLaMA-2-7B (full width
+   and depth, bf16), two prompt families of one 1024-token shared prompt
+   and 8 suffixes of 32-256 tokens, 32 greedy tokens a request, a family
+   a wave: without the cache (A, B); with it (A, B: every request but a
+   family's first hits the 64 shared pages, the prefill chunks and K5's
+   tile launches drop by exactly the chunks the cached pages save, the
+   streams equal the cache-off ones or depart at a near-tie, the hit
+   requests pass the serve phase's dense checks; then one hit and one
+   cold request alone for their TTFTs); with a 2 GiB host pool under a
+   139-page pool (A, B, A: B's wave evicts all of A's cached pages,
+   which spill, and A's second wave restores them: restored pages > 0,
+   every A request hitting its whole chain, no spill dropped, no corrupt
+   payload); every pool's address unchanged. Then float32 at 2 layers of
+   full width, token for token equal to the cache-off engine: the cache,
+   the tier, the ragged step, a 1-layer draft (k 4) and a migration
+   (``prefill_only``, ``export_request``, the wire format both ways,
+   ``adopt_request`` on an engine holding the shared prompt). Spill and
+   restore times and rates beside the host link's, TTFTs, prefill tokens
+   and the peak.
+20. ``generate``: ``cached_attention``'s K5 call (the static cache as a
    page pool) against its plain version (the JAX package's einsum form)
    at the decode, prefill and speculative-verify shapes of the three
    models below, its int8 and window arms and a float32 prompt, two
@@ -191,7 +211,7 @@ Phases, each of which passes or ends the script with a non-zero code:
    speculative greedy departs from vanilla greedy only at a near-tie;
    prefill time, decode tokens/s, step p50, graphs and peak memory, and a
    3-step profile of the LLaMA decode step.
-20. ``attn_cases``: at GPT-3 1.3B's attention shape (B 2, S 2048, H 16,
+21. ``attn_cases``: at GPT-3 1.3B's attention shape (B 2, S 2048, H 16,
    D 128, bf16), the cases outside the kernels' arms: the returned
    probabilities (flash attention's dense route) beside K1's ``out``;
    dropout under a mask that keeps every link (the dense route) against
@@ -476,6 +496,10 @@ def k5_rect(c, rows):
     return c["q"].reshape(t // rows, rows, nh, d), c["qoff"]
 
 
+# a prefix hit's first prefill chunk: the 128-token suffix over the 1024
+# cached tokens (context 1152) that other requests wrote
+PREFIX_HIT_LANES = [(1152, 128)]
+
 # a mixed step of the ragged phase's Mistral engine: 7 decode lanes (their
 # contexts across and past the 4096 window) and a 256-token prefill chunk
 # at context 6300, 9 lanes and 264 tokens as the engine packs them
@@ -520,6 +544,8 @@ def kernel_phase(dev="cuda"):
         ("llama2_7b decode bf16", decode, dict(nh=32, nkv=32, dtype=bf16)),
         ("llama2_7b prefill bf16", prefill,
          dict(nh=32, nkv=32, dtype=bf16)),
+        ("llama2_7b prefix-hit chunk: 128 tokens over 1024 cached",
+         PREFIX_HIT_LANES, dict(nh=32, nkv=32, dtype=bf16)),
         ("llama2_7b mixed+padding bf16", mixed,
          dict(nh=32, nkv=32, dtype=bf16, pad_tokens=7, pad_lanes=2)),
         ("mistral GQA 32:8 mixed bf16", mixed,
@@ -626,7 +652,9 @@ def kernel_phase(dev="cuda"):
                                    ("prefill", prefill, 32, 256),
                                    ("decode_gqa", decode, 8, 1),
                                    ("prefill_gqa", prefill, 8, 256),
-                                   ("verify", verify, 32, SPEC_K + 1)):
+                                   ("verify", verify, 32, SPEC_K + 1),
+                                   ("prefix_hit", PREFIX_HIT_LANES, 32,
+                                    PREFIX_HIT_SUFFIX)):
         c = make_case(lanes, nh=32, nkv=nkv, dtype=bf16, seed=100, dev=dev)
         q4, qoff = k5_rect(c, rows)
         rargs = (q4, c["k"], c["v"], c["pt"], c["cl"], qoff)
@@ -4025,6 +4053,482 @@ def spec_phase(smi, dev=None, profile_steps=0, *, cfg=None, f32_cfg=None,
     return res
 
 
+# -- the prefix cache and its host tier ---------------------------------------
+
+PREFIX_SHARED = 1024      # a family's shared prompt: 64 pages
+PREFIX_SUFFIXES = (32, 64, 96, 128, 160, 192, 224, 256)
+PREFIX_NEW = 32
+# run 3's device pool: the largest at which family B's wave evicts all
+# that family A left cached (136 pages, its 64-page shared chain
+# included; prefix_reckoning prints the sums). The scheduler's admission
+# (worst_case_need + the watermark) staggers a wave, so at 240 pages B
+# evicts only A's suffix pages and the shared chain stays on the card
+PREFIX_SMALL_POOL = 139
+PREFIX_HOST_BYTES = 2 << 30   # run 3's host pool; a family's chain ~1.1 GB
+PREFIX_F32_LAYERS = 2
+PREFIX_F32_DRAFT_LAYERS = 1
+PREFIX_HIT_SUFFIX = 128   # the isolated TTFT pair: 1024 cached + 128 new
+
+
+def prefix_families(vocab, shared=PREFIX_SHARED, suffixes=PREFIX_SUFFIXES):
+    """Two prompt families, A and B: each one shared prompt of ``shared``
+    tokens and one request a suffix length, tokens from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(2):
+        head = rng.integers(1, vocab, shared)
+        out.append([np.concatenate([head, rng.integers(1, vocab, n)])
+                    .astype(np.int32) for n in suffixes])
+    return out
+
+
+def prefix_engine(model, dev, num_pages, **kw):
+    """The serve phase's engine (page 16, 8 lanes, 256-token chunks),
+    warmed up so that every step class's graph is captured."""
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(model, page_size=PAGE_SIZE, num_pages=num_pages,
+                        max_batch=8, prefill_chunk=256, device=dev, **kw)
+    warm_up(eng, model.cfg.vocab_size)
+    return eng
+
+
+def prefix_wave(eng, prompts, new, layers, *, tiled=True, logits=False):
+    """One wave: ``prompts`` queued at once (greedy, ``new`` tokens
+    each), stepped to the end. Every request finishes with its count;
+    K5's launches equal what the step classes' dispatches make (:func:`
+    k5_by_class`). Returns the tokens, each request's cached pages (its
+    last acquire), TTFTs, the prefill tokens computed, the prefill
+    chunks, K5's counts, the metric deltas and, with ``logits``, each
+    request's first-token logits."""
+    from paddle_tpu_torch.serving import attention as A
+
+    m = eng.metrics
+    names = ("prefill_chunks", "tier_spill_pages", "tier_spill_dropped",
+             "tier_restore_pages", "tier_restore_hits",
+             "tier_restore_misses", "tier_corrupt_dropped",
+             "prefix_hit_pages", "prefix_miss_pages", "prefix_evictions",
+             "graph_replays", "step_dispatches")
+    m0 = {n: getattr(m, n).value for n in names}
+    spill0, restore0 = (list(h._samples) for h in (m.tier_spill_s,
+                                                   m.tier_restore_s))
+    before = {key: sc.dispatches for key, sc in eng._classes.items()}
+    first_at, first = {}, {}
+
+    def on_event(ev):
+        rid = ev["req_id"]
+        if ev["type"] == "token" and rid not in first_at:
+            first_at[rid] = time.perf_counter()
+            if logits:
+                first[rid] = eng.logits_row(rid).clone()
+
+    eng.on_event = on_event
+    A.reset_stats()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=new) for p in prompts]
+    add_s = time.perf_counter() - t0       # the tier's restores included
+    while not eng.scheduler.all_done():
+        eng.step()
+    wall = time.perf_counter() - t0
+    eng.on_event = None
+    res = eng.results()
+    tokens = [res[r]["tokens"] for r in rids]
+    for r, t in zip(rids, tokens):
+        if res[r]["finish_reason"] != "length" or len(t) != new:
+            raise AssertionError(f"prefix: request {r} finished "
+                                 f"{res[r]['finish_reason']} with {len(t)}")
+    counts = dict(A.stats)
+    dlayers = eng.draft.cfg.num_hidden_layers if eng.draft else 0
+    by_kind = k5_by_class(eng, before, layers, dlayers, tiled)
+    want = {k: sum(v[k] for v in by_kind.values()) for k in counts}
+    if counts != want:
+        raise AssertionError(f"prefix: K5 counts {counts}, the classes' "
+                             f"dispatches make {want} ({by_kind})")
+    d = {n: getattr(m, n).value - m0[n] for n in names}
+    if eng._graphs and d["graph_replays"] != d["step_dispatches"]:
+        raise AssertionError(f"prefix: {d['graph_replays']} replays for "
+                             f"{d['step_dispatches']} dispatches")
+    cached = [eng._requests[r].cached_pages for r in rids]
+    ps = eng.cache.page_size
+    return dict(
+        tokens=tokens, cached=cached,
+        ttft=[first_at[r] - t0 for r in rids], add_s=add_s, wall=wall,
+        prefill_tokens=int(sum(p.size - c * ps
+                               for p, c in zip(prompts, cached))),
+        counts=counts, metrics=d,
+        spill_s=m.tier_spill_s._samples[len(spill0):],
+        restore_s=m.tier_restore_s._samples[len(restore0):],
+        first=[first.get(r) for r in rids])
+
+
+def tier_of(wave):
+    """A :func:`prefix_wave`'s tier counters."""
+    return {k: v for k, v in wave["metrics"].items()
+            if k.startswith("tier")}
+
+
+def prefix_chunks(prompts, cached, ps=PAGE_SIZE, chunk=256):
+    """Prefill chunks the requests need past their cached pages."""
+    return sum(math.ceil((p.size - c * ps) / chunk)
+               for p, c in zip(prompts, cached))
+
+
+def prefix_isolated(eng, prompt):
+    """TTFT of one request alone on an idle engine."""
+    first = []
+    eng.on_event = lambda ev: (ev["type"] == "token" and not first
+                               and first.append(time.perf_counter()))
+    t0 = time.perf_counter()
+    rid = eng.add_request(prompt, max_new_tokens=2)
+    while not eng.scheduler.all_done():
+        eng.step()
+    eng.on_event = None
+    return first[0] - t0, eng._requests[rid].cached_pages
+
+
+def prefix_reckoning(eng, fam):
+    """Run 3's pool against a family wave: the pages its 8 requests need
+    at their peak (history + new tokens but the last, the shared prompt
+    once), what the family leaves cached, and what admission charges
+    (``worst_case_need`` of a request holding nothing, the
+    watermark)."""
+    c, s = eng.cache, eng.scheduler
+    peak = (c.pages_for(PREFIX_SHARED)
+            + sum(c.pages_for(p.size + PREFIX_NEW - 1)
+                  - c.pages_for(PREFIX_SHARED) for p in fam))
+    cached = (c.pages_for(PREFIX_SHARED)
+              + sum(p.size // c.page_size - PREFIX_SHARED // c.page_size
+                    for p in fam))
+    first_need = c.pages_for(fam[0].size + 1 + s.spec_reserve_tokens)
+    return dict(allocatable=c.allocatable_pages,
+                watermark=s.watermark_pages, wave_peak=peak,
+                family_cached=cached, first_need=first_need)
+
+
+def link_rates(eng, n_pages=64):
+    """The host link at a chain's size: ``n_pages`` of every layer's K/V
+    gathered on the card and copied to pinned host memory, and copied
+    back, and one spilled page's device work, CUDA-event timed. Returns
+    (bytes, D2H ms, H2D ms, spill ms a page)."""
+    import torch
+    c = eng.cache
+    idx = torch.arange(1, n_pages + 1, device=c.device)
+    dev = c._kv.index_select(2, idx)
+    host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+    d2h = cuda_ms(lambda: host.copy_(dev, non_blocking=True), iters=5)
+    h2d = cuda_ms(lambda: dev.copy_(host, non_blocking=True), iters=5)
+    # one spilled page's device work: the index copy, the gather of every
+    # layer, the copy to pinned memory (what KVTier.spill enqueues)
+    page_ms = cuda_ms(lambda: c.gather_pages([1], sync=False), iters=10)
+    return dev.numel() * dev.element_size(), d2h, h2d, page_ms
+
+
+def prefix_phase(smi, dev=None, *, cfg=None, f32_cfg=None,
+                 shared=PREFIX_SHARED, suffixes=PREFIX_SUFFIXES,
+                 new=PREFIX_NEW, num_pages=KV_POOL_PAGES,
+                 small_pool=PREFIX_SMALL_POOL, host_bytes=PREFIX_HOST_BYTES,
+                 hit_suffix=PREFIX_HIT_SUFFIX):
+    """``ServingEngine(prefix_cache=True, host_pool=HostPagePool(...))``
+    over the serve phase's LLaMA-2-7B (full width and depth, bf16, seed
+    0): two prompt families (a shared prompt of ``shared`` tokens and 8
+    suffixes each), 32 greedy tokens a request, a family a wave.
+
+    1. No prefix cache: A, then B (the baseline streams and counts).
+    2. ``prefix_cache=True``: A, then B. Streams equal run 1's or depart
+       at a near-tie (:func:`departures`); the prefill chunks, and K5's
+       tile launches with them (layers x chunks), drop by exactly the
+       chunks the cached pages save; each hit request's first-token
+       logits and tokens pass the serve phase's dense checks. Then one
+       hit request and one cold request of the same length alone: TTFT.
+    3. ``prefix_cache=True, host_pool=`` over ``small_pool`` pages: A, B,
+       A. B's wave evicts A's chain (spilled), A's second wave restores
+       it: restored pages > 0, every A request hits its whole chain, no
+       spill dropped, no corrupt payload; streams as run 1's.
+    4. Float32 at 2 layers of full width, token for token equal to the
+       cache-off engine: runs 2 and 3, the ragged step, a 1-layer draft
+       (k 4), and a migration (``prefill_only`` -> ``export_request`` ->
+       ``serialize_pages`` -> ``deserialize_pages`` -> ``adopt_request``
+       on an engine holding the prefix).
+
+    Every pool's address is unchanged across each run."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import HostPagePool
+
+    on_card = torch.device(dev or "cuda").type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or LlamaConfig.llama2_7b(dtype="bfloat16",
+                                       use_flash_attention=False)
+    f32_cfg = f32_cfg or LlamaConfig.llama2_7b(
+        num_hidden_layers=PREFIX_F32_LAYERS, dtype="float32",
+        use_flash_attention=False)
+    layers = cfg.num_hidden_layers
+    tag = f"prefix [{smi}]"
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model.eval()
+    fa, fb = prefix_families(cfg.vocab_size, shared, suffixes)
+    print(f"{tag}: model {layers} layers width {cfg.hidden_size} "
+          f"{cfg.dtype} built in {time.perf_counter() - t0:.1f} s; two "
+          f"families of {len(fa)} prompts, {shared} shared tokens + "
+          f"{min(suffixes)}-{max(suffixes)}, {new} greedy tokens each",
+          flush=True)
+    res = {}
+
+    def run(name, waves, npages, logits=False, **kw):
+        eng = prefix_engine(model, dev, npages, **kw)
+        ptrs = eng.cache.pool_ptrs()
+        out = [prefix_wave(eng, w, new, layers, logits=logits)
+               for w in waves]
+        if eng.cache.pool_ptrs() != ptrs:
+            raise AssertionError(f"{name}: a pool moved")
+        for i, w in enumerate(out):
+            print(f"{tag} {name} wave {i}: {w['wall']:.3f} s, prefill "
+                  f"tokens {w['prefill_tokens']} in "
+                  f"{w['metrics']['prefill_chunks']} chunks, hit pages "
+                  f"{w['metrics']['prefix_hit_pages']} miss "
+                  f"{w['metrics']['prefix_miss_pages']}, TTFT p50 "
+                  f"{np.percentile(w['ttft'], 50):.4f} s, K5 "
+                  f"{w['counts']}, tier {tier_of(w)}", flush=True)
+        return eng, out
+
+    # 1. the baseline
+    eng, cold = run("cache off", (fa, fb), num_pages)
+    del eng
+    for w, fam in zip(cold, (fa, fb)):
+        if w["metrics"]["prefill_chunks"] != prefix_chunks(fam, [0] * 8) \
+                or w["counts"]["tile_launches"] != layers * \
+                w["metrics"]["prefill_chunks"]:
+            raise AssertionError("cache off: chunks or tile launches")
+    # 2. the prefix cache
+    eng, hot = run("prefix_cache", (fa, fb), num_pages, logits=True,
+                   prefix_cache=True)
+    saved = []
+    for w, c, fam in zip(hot, cold, (fa, fb)):
+        chunks = w["metrics"]["prefill_chunks"]
+        if chunks != prefix_chunks(fam, w["cached"]) or \
+                w["counts"]["tile_launches"] != layers * chunks:
+            raise AssertionError(f"prefix_cache: {chunks} chunks, tile "
+                                 f"launches {w['counts']}, cached "
+                                 f"{w['cached']}")
+        saved.append(c["metrics"]["prefill_chunks"] - chunks)
+        if c["counts"]["tile_launches"] - w["counts"]["tile_launches"] \
+                != layers * saved[-1] or saved[-1] <= 0:
+            raise AssertionError("prefix_cache: tile launches did not "
+                                 "drop by the chunks not run")
+        if w["cached"][0] != 0 or any(
+                x != shared // PAGE_SIZE for x in w["cached"][1:]):
+            raise AssertionError(f"prefix_cache: cached pages "
+                                 f"{w['cached']}")
+    prompts = fa + fb
+    plain = [t for w in cold for t in w["tokens"]]
+    got = [t for w in hot for t in w["tokens"]]
+    greedy = [dict(seed=0)] * len(prompts)
+    res["departures"] = departures(model, prompts, plain, got, greedy,
+                                   MARGIN, "prefix_cache")
+    hits = [i for i in range(len(prompts)) if i % len(fa)]
+    worst_cos, _ = dense_checks(model, prompts, got,
+                                [x for w in hot for x in w["first"]], hits)
+    rng = np.random.default_rng(11)
+    hit_p = np.concatenate([fa[0][:shared], rng.integers(
+        1, cfg.vocab_size, hit_suffix)]).astype(np.int32)
+    cold_p = rng.integers(1, cfg.vocab_size, hit_p.size).astype(np.int32)
+    ttft_hit, hit_pages = prefix_isolated(eng, hit_p)
+    ttft_cold, cold_pages = prefix_isolated(eng, cold_p)
+    if hit_pages != shared // PAGE_SIZE or cold_pages != 0:
+        raise AssertionError(f"isolated: cached {hit_pages}, {cold_pages}")
+    res["hot"] = dict(
+        prefill_tokens=[w["prefill_tokens"] for w in hot],
+        cold_prefill_tokens=[w["prefill_tokens"] for w in cold],
+        chunks_saved=saved,
+        tile_launches=sum(w["counts"]["tile_launches"] for w in hot),
+        cold_tile_launches=sum(w["counts"]["tile_launches"] for w in cold),
+        ttft_p50_hit=float(np.percentile(
+            [w["ttft"][i] for w in hot for i in range(1, len(fa))], 50)),
+        ttft_p50_cold_run=float(np.percentile(
+            [t for w in cold for t in w["ttft"]], 50)),
+        ttft_first_of_family=[w["ttft"][0] for w in hot],
+        ttft_isolated_hit=ttft_hit, ttft_isolated_cold=ttft_cold,
+        worst_cosine=worst_cos,
+        equal_streams=sum(a == b for a, b in zip(plain, got)))
+    r = res["hot"]
+    print(f"{tag} prefix_cache: prefill tokens {r['prefill_tokens']} "
+          f"(cache off {r['cold_prefill_tokens']}), chunks saved "
+          f"{saved}, K5 tile launches {r['tile_launches']} (cache off "
+          f"{r['cold_tile_launches']} = {layers} x the chunks not run "
+          f"more); TTFT p50 hit requests {r['ttft_p50_hit']:.4f} s, "
+          f"cache-off run {r['ttft_p50_cold_run']:.4f} s; alone: hit "
+          f"({shared} cached + {hit_suffix}) {ttft_hit:.4f} s, cold "
+          f"{ttft_cold:.4f} s; {r['equal_streams']} of {len(plain)} "
+          f"streams equal, departures {res['departures']}; worst cosine "
+          f"{worst_cos:.6f}", flush=True)
+    del eng
+    gc.collect()
+    # 3. the host tier under a small pool
+    pool = HostPagePool(host_bytes)
+    eng = prefix_engine(model, dev, small_pool, prefix_cache=True,
+                        host_pool=pool)
+    reck = prefix_reckoning(eng, fb)
+    print(f"{tag} small pool: {reck}", flush=True)
+    ptrs = eng.cache.pool_ptrs()
+    tier = [prefix_wave(eng, w, new, layers) for w in (fa, fb)]
+    left = eng.cache.probe_prefix(fa[0], fa[0].size)
+    if left:
+        raise AssertionError(f"small pool: family B's wave left {left} "
+                             "pages of A's chain on the card")
+    tier.append(prefix_wave(eng, fa, new, layers))
+    if eng.cache.pool_ptrs() != ptrs:
+        raise AssertionError("small pool: a pool moved")
+    w3 = tier[2]["metrics"]
+    chain = [(p.size - 1) // PAGE_SIZE for p in fa]
+    spilled = sum(w["metrics"]["tier_spill_pages"] for w in tier)
+    if not (w3["tier_restore_pages"] > 0 and tier[2]["cached"] == chain
+            and all(w["metrics"]["tier_spill_dropped"] == 0
+                    and w["metrics"]["tier_corrupt_dropped"] == 0
+                    for w in tier)):
+        raise AssertionError(f"the tier degraded: "
+                             f"{[tier_of(w) for w in tier]}, cached "
+                             f"{tier[2]['cached']} (chains {chain})")
+    res["tier_departures"] = departures(
+        model, fa, cold[0]["tokens"], tier[2]["tokens"], greedy[:len(fa)],
+        MARGIN, "tier restore")
+    page_bytes = eng.cache.bytes_total / eng.cache.num_pages
+    spill_s = sum(s for w in tier for s in w["spill_s"])
+    restore_s = sum(tier[2]["restore_s"])
+    link = link_rates(eng) if on_card else None
+    res["tier"] = dict(
+        reckoning=reck, spilled_pages=spilled,
+        restored_pages=w3["tier_restore_pages"],
+        restores=w3["tier_restore_hits"], spill_s=spill_s,
+        restore_s=restore_s, page_bytes=page_bytes,
+        spill_gb_s=spilled * page_bytes / spill_s / 1e9 if spill_s else None,
+        restore_gb_s=(w3["tier_restore_pages"] * page_bytes / restore_s
+                      / 1e9 if restore_s else None),
+        wave3_add_s=tier[2]["add_s"],
+        ttft_p50_restored=float(np.percentile(tier[2]["ttft"], 50)),
+        equal_streams=sum(a == b for a, b in zip(cold[0]["tokens"],
+                                                 tier[2]["tokens"])),
+        host_pool=eng.tier_stats(),
+        link=(dict(bytes=link[0], d2h_ms=link[1], h2d_ms=link[2],
+                   d2h_gb_s=link[0] / link[1] / 1e6,
+                   h2d_gb_s=link[0] / link[2] / 1e6,
+                   spill_page_device_ms=link[3]) if link else None))
+    t = res["tier"]
+    print(f"{tag} tier: {spilled} pages spilled ({t['spill_s']:.3f} s of "
+          f"flushes, {t['spill_gb_s']} GB/s serialized), "
+          f"{t['restored_pages']} restored in {t['restores']} restores "
+          f"({t['restore_s']:.3f} s, {t['restore_gb_s']} GB/s); wave 3 "
+          f"TTFT p50 {t['ttft_p50_restored']:.4f} s, its add_request "
+          f"{t['wave3_add_s']:.3f} s; host link {t['link']}; "
+          f"{t['equal_streams']} of {len(fa)} streams equal, departures "
+          f"{res['tier_departures']}; host pool {t['host_pool']}",
+          flush=True)
+    del eng, pool
+    gc.collect()
+    res["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if on_card else None)
+    del model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    res["f32"] = prefix_f32(smi, dev, f32_cfg, fa, fb, new, num_pages,
+                            small_pool, host_bytes)
+    print(f"{tag}: peak memory {res['peak_mem_gib']} GiB (bf16 runs)",
+          flush=True)
+    return res
+
+
+def prefix_f32(smi, dev, cfg, fa, fb, new, num_pages, small_pool,
+               host_bytes):
+    """Float32 at 2 layers of full width: the cache off, then every
+    form of the cache, token for token equal to it."""
+    import dataclasses
+
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import (HostPagePool, deserialize_pages,
+                                          serialize_pages)
+
+    layers = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device=dev, seed=2)
+    draft = LlamaForCausalLM(dataclasses.replace(
+        cfg, num_hidden_layers=PREFIX_F32_DRAFT_LAYERS), device=dev, seed=3)
+    model.eval()
+    draft.eval()
+
+    def serve(waves, npages, **kw):
+        eng = prefix_engine(model, dev, npages, **kw)
+        ptrs = eng.cache.pool_ptrs()
+        out = [prefix_wave(eng, w, new, layers, tiled=False)
+               for w in waves]
+        if eng.cache.pool_ptrs() != ptrs:
+            raise AssertionError("f32: a pool moved")
+        return eng, out
+
+    # the migrated request: A's shared prompt and a suffix no engine
+    # cached, so the payload carries the suffix's pages
+    rng = np.random.default_rng(13)
+    mig = np.concatenate([fa[0][:PREFIX_SHARED], rng.integers(
+        1, cfg.vocab_size, 200)]).astype(np.int32)
+    base_eng, base = serve((fa, fb, fa, [mig]), num_pages)
+    del base_eng
+    want = [w["tokens"] for w in base]
+    out = {}
+    for name, waves, npages, kw in (
+            ("prefix_cache", (fa, fb), num_pages, dict(prefix_cache=True)),
+            ("tier", (fa, fb, fa), small_pool,
+             dict(prefix_cache=True, host_pool=HostPagePool(host_bytes))),
+            ("ragged", (fa, fb), num_pages,
+             dict(prefix_cache=True, ragged=True)),
+            ("draft", (fa, fb), num_pages,
+             dict(prefix_cache=True, draft_model=draft, speculative_k=4))):
+        eng, got = serve(waves, npages, **kw)
+        if [w["tokens"] for w in got] != want[:len(waves)]:
+            raise AssertionError(f"f32 {name}: streams differ from the "
+                                 "cache-off engine's")
+        out[name] = dict(hit_pages=sum(w["metrics"]["prefix_hit_pages"]
+                                       for w in got),
+                         restored=sum(w["metrics"]["tier_restore_pages"]
+                                      for w in got))
+        if name == "tier" and not out[name]["restored"]:
+            raise AssertionError("f32 tier: nothing restored")
+        if name == "draft" and eng.metrics.spec_rounds.value == 0:
+            raise AssertionError("f32 draft: no speculative round")
+        if name == "prefix_cache":
+            holder = eng              # A and B cached: the adopter below
+        else:
+            del eng
+    # a migration: prefilled on one engine, decoded on one that holds the
+    # prefix, through the wire format
+    src = prefix_engine(model, dev, num_pages, prefix_cache=True)
+    p = mig
+    rid = src.add_request(p, max_new_tokens=new, prefill_only=True)
+    src.run()
+    skip = holder.cache.probe_prefix(p, p.size + 1)
+    payload = serialize_pages(*src.export_request(rid, skip_pages=skip))
+    src.release_request(rid)
+    meta, k, v, _ = deserialize_pages(payload)
+    ptrs = holder.cache.pool_ptrs()
+    arid = holder.adopt_request(meta, k, v, max_new_tokens=new)
+    holder.run()
+    if holder.results()[arid]["tokens"] != want[3][0] or \
+            holder.cache.pool_ptrs() != ptrs or not skip \
+            or not meta["n_pages"]:
+        raise AssertionError("f32 migration: the adopted stream differs "
+                             f"(skip {skip})")
+    out["migration"] = dict(skip_pages=skip, payload_bytes=len(payload),
+                            pages=meta["n_pages"])
+    print(f"prefix float32 [{smi}]: {layers} layers of width "
+          f"{cfg.hidden_size}: the cache, the tier, the ragged step, a "
+          f"{PREFIX_F32_DRAFT_LAYERS}-layer draft and a migration "
+          f"({meta['n_pages']} pages past the adopter's {skip}, "
+          f"{len(payload)} bytes) all equal to the cache-off engine token "
+          f"for token: {out}", flush=True)
+    return out
+
+
 # -- the attention cases outside the kernels' arms ---------------------------
 
 ATTN_SHAPE = (2, 2048, 16, HEAD_DIM)      # GPT-3 1.3B's attention, bf16
@@ -5218,6 +5722,8 @@ def main(argv=None):
     if "spec" in phases:
         res["spec"] = phase("spec", spec_phase, smi,
                             profile_steps=args.profile)
+    if "prefix" in phases:
+        res["prefix"] = phase("prefix", prefix_phase, smi)
     if "generate" in phases:
         res["generate"] = phase("generate", generate_phase, smi,
                                 profile_steps=args.profile)
@@ -5245,12 +5751,12 @@ def main(argv=None):
 
 PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
           "mistral_path", "gpt", "gpt_path", "fit", "full_attn", "offload",
-          "optimizers", "workers", "serve", "ragged", "spec", "generate",
-          "attn_cases")
+          "optimizers", "workers", "serve", "ragged", "spec", "prefix",
+          "generate", "attn_cases")
 # the phases of the main paths (training, serving, generate): none of them
 # may take flash attention's dense route
 DENSE_FREE = ("train", "mistral", "gpt", "fit", "full_attn", "offload",
-              "serve", "ragged", "spec", "generate")
+              "serve", "ragged", "spec", "prefix", "generate")
 
 
 def kernel_rows(res):
@@ -5306,6 +5812,19 @@ def kernel_rows(res):
             replaces="paddle_tpu/serving/attention.py:289",
             launches=res.get("spec", {}).get("self", {}).get(
                 "verify_launches"),
+            max_abs_err=worst_err,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}))
+    if k5:
+        # a prefix hit's first chunk (the tile form over cached context):
+        # launches from the prefix phase's cache-on run (every chunk's)
+        t = timings["prefix_hit"]
+        rows.append(dict(
+            name="ragged_paged_attention_prefix_hit_chunk", route="cuda",
+            source="paddle_tpu_torch/serving/csrc/ragged_paged_attention.cu",
+            replaces="paddle_tpu/serving/attention.py:289",
+            launches=res.get("prefix", {}).get("hot", {}).get(
+                "tile_launches"),
             max_abs_err=worst_err,
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}))

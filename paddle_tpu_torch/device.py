@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "resolve_dtype"]
+__all__ = ["dtype_name", "resolve_device", "resolve_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
@@ -44,3 +44,13 @@ def resolve_dtype(dtype) -> torch.dtype:
         raise ValueError(
             f"unsupported dtype {dtype!r}: use one of "
             f"{sorted(_DTYPES)}") from None
+
+
+def dtype_name(dtype) -> str:
+    """The JAX package's name of a dtype (``"bfloat16"``, never
+    ``"torch.bfloat16"``): what geometry dicts and wire headers carry."""
+    dt = resolve_dtype(dtype)
+    for name, d in _DTYPES.items():
+        if d == dt:
+            return name
+    raise ValueError(f"no name for dtype {dtype!r}")  # pragma: no cover

@@ -63,11 +63,27 @@ speculative lanes ride the token-packed dispatch with q = k+1 tokens a
 lane (mixed capacity ``max_batch * (k+1) + prefill_chunk``); the
 draft's proposal stays its own dispatch.
 
-Arguments of the JAX engine outside this slice (the prefix cache,
-weight quantization, chaos, the host KV tier, draft distillation,
-tensor parallelism) raise ``NotImplementedError``. The ragged step is
-chosen by ``ragged=`` alone: the JAX package's
-``PADDLE_TPU_SERVING_RAGGED`` is not read.
+The prefix cache (``prefix_cache=True``): ``add_request`` restores the
+prompt's missing prefix pages from the host tier (``host_pool=``, a
+:class:`~.kvtier.HostPagePool`) and pins its longest cached prefix;
+admission counts only the uncached pages and the prefill starts at the
+cached offset, so its first chunk's attention reads context that other
+requests wrote. Each prefill chunk registers its full prompt pages in
+the radix tree; pages LRU-evicted under pressure spill to the host tier,
+whose deferred spills are serialized at the step boundary. A
+speculative engine's rejected tails keep cached pages resident; the
+draft's own pool has no prefix cache. Page migration between engines:
+``add_request(prefill_only=True)`` holds the prefilled request,
+``export_request`` / ``release_request`` / ``adopt_request`` move it,
+``export_prefix`` / ``import_prefix`` / ``drop_prefix`` move cached
+chains, all on :mod:`.pagewire`'s payloads.
+
+Arguments of the JAX engine outside this slice (weight quantization,
+chaos, draft distillation, tensor parallelism) raise
+``NotImplementedError``. ``ragged=``, ``prefix_cache=`` and
+``host_pool=`` are read as given: the JAX package's
+``PADDLE_TPU_SERVING_RAGGED``, ``PADDLE_TPU_SERVING_PREFIX_CACHE`` and
+host-pool knobs are not read.
 """
 from __future__ import annotations
 
@@ -82,6 +98,7 @@ from ..nn.functional import fused_rotary_position_embedding
 from . import attention as _attention
 from .attention import paged_plan, planned_attention, ragged_plan
 from .kv_cache import SCRATCH_PAGE, OutOfPages, PagedKVCache
+from .kvtier import KVTier
 from .metrics import ServingMetrics
 from .sampling import fused_sample, fused_sample_multi
 from .scheduler import Request, RequestState, Scheduler
@@ -213,8 +230,7 @@ class ServingEngine:
                  weight_quant=None, chaos=None, host_pool=None,
                  distill=None, ragged=None, mesh=None, tp_degree=None):
         _refuse_unported(
-            prefix_cache=prefix_cache, weight_quant=weight_quant,
-            chaos=chaos is not None, host_pool=host_pool is not None,
+            weight_quant=weight_quant, chaos=chaos is not None,
             distill=distill is not None, mesh=mesh is not None,
             tp_degree=(tp_degree or 1) > 1)
         cfg, core = self._validate_causal_lm(model)
@@ -247,7 +263,8 @@ class ServingEngine:
             num_pages=num_pages,
             hbm_budget_bytes=(int(hbm_budget_mb * 2 ** 20)
                               if hbm_budget_mb is not None else None),
-            dtype=self.cache_dtype, device=self.device)
+            dtype=self.cache_dtype, prefix_cache=bool(prefix_cache),
+            device=self.device)
         self.max_pages_per_seq = math.ceil(
             self.max_seq_len / self.cache.page_size)
         self._init_draft(draft_model, speculative_k, cfg, page_size,
@@ -259,6 +276,13 @@ class ServingEngine:
         self.metrics = ServingMetrics()
         self.metrics.kv_page_bytes.set(self.cache.bytes_total
                                        / self.cache.num_pages)
+        # the host tier behind the prefix cache (nothing spills from a
+        # tree that does not exist, so it is absent without one)
+        if host_pool is not None and self.cache.prefix_cache_enabled:
+            self.kvtier = KVTier(host_pool, metrics=self.metrics)
+            self.cache.attach_tier(self.kvtier)
+        else:
+            self.kvtier = None
         self.eos = eos_token_id
         self.window = getattr(cfg, "sliding_window", None) or None
         # the unified ragged step: L lanes always (max_batch decode or
@@ -281,6 +305,7 @@ class ServingEngine:
         self._seed_rng = np.random.default_rng()  # seed=None fallback
         self._requests: dict[int, Request] = {}
         self._finished: dict[int, Request] = {}
+        self._held: dict[int, Request] = {}  # "prefilled", pages kept
         # streaming callback: called synchronously with every event dict
         # the moment it is emitted (token/finish), from the thread that
         # runs step(). Must be cheap and non-blocking.
@@ -334,11 +359,16 @@ class ServingEngine:
     def add_request(self, prompt, max_new_tokens=32, *, deadline_s=None,
                     do_sample=False, temperature=1.0, top_k=0,
                     top_p=1.0, seed=None, n=1, logprobs=False,
-                    request_id=None, speculative=None):
+                    request_id=None, speculative=None,
+                    prefill_only=False):
         """Queue a request; returns its req_id (n>1 returns the PARENT id
         — forked children surface as their own req_ids in events).
         ``speculative=False`` keeps the request out of the draft-verify
-        rounds of a speculative engine."""
+        rounds of a speculative engine. With the prefix cache on, the
+        host tier first restores what it holds of the prompt's prefix,
+        then the longest cached prefix is PINNED here. ``prefill_only``
+        holds the request after its first token, pages kept, for
+        :meth:`export_request`."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -353,6 +383,11 @@ class ServingEngine:
         if n > 1 and not do_sample:
             raise ValueError("n>1 needs do_sample=True (greedy forks "
                              "would be identical streams)")
+        if prefill_only and n > 1:
+            raise ValueError(
+                "prefill_only is incompatible with n>1: forks are "
+                "created at prefill completion on the decode side of a "
+                "migration")
         if not 0.0 <= float(top_p) <= 1.0:
             raise ValueError(f"top_p={top_p} outside [0, 1]")
         now = self._now()
@@ -367,11 +402,19 @@ class ServingEngine:
                       request_id=(str(request_id)
                                   if request_id is not None else None),
                       speculative=(None if speculative is None
-                                   else bool(speculative)))
+                                   else bool(speculative)),
+                      prefill_only=bool(prefill_only))
         req.device_seed = (int(seed) & 0x7FFFFFFF if seed is not None
                            else int(self._seed_rng.integers(
                                1, 2 ** 31 - 1)))
         self._requests[req.req_id] = req
+        if self.cache.prefix_cache_enabled:
+            # the tier's restore first, so the acquire pins its pages
+            # like any shipped prefix (best-effort: a miss recomputes)
+            if self.kvtier is not None:
+                self.kvtier.restore(self.cache, prompt)
+            req.cached_pages = self.cache.acquire_prefix(
+                req.seq_id, prompt, prompt.size)
         self.scheduler.add(req)
         return req.req_id
 
@@ -391,6 +434,7 @@ class ServingEngine:
             self._free_draft_seq(r.seq_id)
             self.metrics.deadline_evictions.inc()
             self._record_finish(r, events)
+        self.sweep_held_deadlines(now)
         if self.ragged:
             self._ragged_step(out, events)
         else:
@@ -405,27 +449,32 @@ class ServingEngine:
         if not out.decode and out.prefill is None and not out.expired \
                 and self.scheduler.waiting \
                 and not self.scheduler.live_requests():
-            # idle engine + blocked admission head: loud, not a silent
-            # spin — the request can never fit
+            # idle engine + blocked admission head: first give back the
+            # prefix pins of OTHER waiting requests (they re-match at
+            # admission), then loud, not a silent spin — the request can
+            # never fit
             req = self.scheduler.waiting[0]
-            need = self.scheduler.worst_case_need(req)
-            if need + self.scheduler.watermark_pages \
-                    > self.cache.available_pages:
-                raise RuntimeError(
-                    f"request {req.req_id} can never be admitted: "
-                    f"needs {need} pages + "
-                    f"{self.scheduler.watermark_pages} watermark > "
-                    f"{self.cache.available_pages} available; grow "
-                    "the cache budget or shrink the prompt")
+            if not self._release_waiting_pins(exclude=req):
+                need = self.scheduler.worst_case_need(req)
+                if need + self.scheduler.watermark_pages \
+                        > self.cache.available_pages:
+                    raise RuntimeError(
+                        f"request {req.req_id} can never be admitted: "
+                        f"needs {need} pages + "
+                        f"{self.scheduler.watermark_pages} watermark > "
+                        f"{self.cache.available_pages} available; grow "
+                        "the cache budget or shrink the prompt")
         m = self.metrics
         m.queue_depth.record(self.scheduler.queue_depth())
         m.page_occupancy.record(self.cache.occupancy())
         m.queue_depth_gauge.set(self.scheduler.queue_depth())
         m.page_occupancy_gauge.set(self.cache.occupancy())
         m.running_gauge.set(len(self.scheduler.running))
-        if m.spec_draft_tokens.value:
-            m.spec_acceptance_rate.set(m.spec_accepted_tokens.value
-                                       / m.spec_draft_tokens.value)
+        if self.kvtier is not None:
+            # serialize the step's deferred spills at its boundary (the
+            # eviction loop itself only enqueues their copies)
+            self.kvtier.flush()
+        self._sync_prefix_metrics()
         m.step_duration_s.record(self._now() - now)
         return events
 
@@ -457,8 +506,12 @@ class ServingEngine:
         True if the request was live, False for unknown/finished ids.
         Not safe to call concurrently with step()."""
         req = self._requests.get(req_id)
-        if req is None or req.state == RequestState.FINISHED:
+        if req is None:
             return False
+        if req.state == RequestState.FINISHED:
+            # a held ("prefilled") request is finished but still owns
+            # pages awaiting export: cancellation releases them
+            return self.release_request(req_id)
         if self.cache.has_seq(req.seq_id):
             self.cache.free_seq(req.seq_id)
         self._free_draft_seq(req.seq_id)
@@ -478,12 +531,166 @@ class ServingEngine:
                 self.cache.free_seq(r.seq_id)
             self._free_draft_seq(r.seq_id)
             self.scheduler.preempt(r)
+        # WAITING requests hold prefix pins (add_request acquires them):
+        # free the sequences and leave the requests queued; admission
+        # re-matches the prefix
+        for r in self.scheduler.waiting:
+            if self.cache.has_seq(r.seq_id):
+                self.cache.free_seq(r.seq_id)
+        for rid in list(self._held):
+            self.release_request(rid)
 
     def results(self):
         return {rid: {"tokens": list(r.out_tokens),
                       "finish_reason": r.finish_reason,
                       "preemptions": r.preemptions}
                 for rid, r in self._finished.items()}
+
+    def sweep_held_deadlines(self, now=None):
+        """Release HELD ("prefilled") requests whose deadline passed: a
+        migration that never came back must not pin pages forever.
+        Called every step. Returns the number released."""
+        if not self._held:
+            return 0
+        now = self._now() if now is None else now
+        expired = [rid for rid, r in self._held.items()
+                   if r.deadline is not None and now >= r.deadline]
+        for rid in expired:
+            self.release_request(rid)
+            self.metrics.held_expired.inc()
+        return len(expired)
+
+    # -- KV page migration -------------------------------------------------
+    def export_request(self, req_id, skip_pages=0):
+        """Export a HELD request's page chain for migration: the
+        allocator's ``(meta, k_arrays, v_arrays)`` with the continuation
+        fields (prompt, out_tokens, device_seed, request_id) in ``meta``.
+        Read-only: the request stays held until
+        :meth:`release_request`."""
+        req = self._held.get(req_id)
+        if req is None:
+            raise KeyError(
+                f"export_request: request {req_id!r} is not held "
+                "(not prefill_only, already released, or unknown)")
+        meta, k, v = self.cache.export_pages(req.seq_id, skip_pages)
+        meta.update(prompt=[int(t) for t in req.prompt],
+                    out_tokens=[int(t) for t in req.out_tokens],
+                    device_seed=int(req.device_seed),
+                    request_id=req.request_id)
+        self.metrics.pages_exported.inc(int(meta["n_pages"]))
+        return meta, k, v
+
+    def release_request(self, req_id):
+        """Free a held request's pages (its migration committed or
+        abandoned). Idempotent: False when nothing is held under this
+        id."""
+        req = self._held.pop(req_id, None)
+        if req is None:
+            return False
+        if self.cache.has_seq(req.seq_id):
+            self.cache.free_seq(req.seq_id)
+        return True
+
+    def adopt_request(self, meta, k_arrays, v_arrays, *,
+                      max_new_tokens, deadline_s=None, do_sample=False,
+                      temperature=1.0, top_k=0, top_p=1.0, seed=None,
+                      logprobs=False, request_id=None, speculative=None):
+        """Register a migrated-in request: import its page chain
+        (geometry-checked, the shared prefix resolved against THIS
+        engine's radix tree) and enter it RUNNING, so the next decode
+        step continues the stream where the exporting engine stopped
+        (``device_seed`` rides in ``meta``). Raises GeometryMismatch,
+        PrefixDrift or OutOfPages with nothing left behind."""
+        prompt = np.asarray(meta["prompt"], np.int32).reshape(-1)
+        out_tokens = [int(t) for t in meta["out_tokens"]]
+        if prompt.size == 0 or not out_tokens:
+            raise ValueError(
+                "adopt_request needs a non-empty prompt and at least "
+                "the prefill engine's first sampled token")
+        if int(meta["seq_len"]) != prompt.size + len(out_tokens) - 1:
+            raise ValueError(
+                f"adopt_request: payload seq_len={meta['seq_len']} != "
+                f"history-1 ({prompt.size}+{len(out_tokens)}-1): the "
+                "last sampled token must not have been fed yet")
+        if len(out_tokens) >= int(max_new_tokens):
+            raise ValueError(
+                f"adopt_request: {len(out_tokens)} token(s) already "
+                f"emitted >= max_new_tokens({max_new_tokens}): nothing "
+                "left to decode")
+        if request_id is None:
+            request_id = meta.get("request_id")
+        if prompt.size + int(max_new_tokens) > self.max_seq_len:
+            raise ValueError(
+                f"prompt({prompt.size}) + max_new_tokens"
+                f"({max_new_tokens}) exceeds max_seq_len"
+                f"({self.max_seq_len})")
+        now = self._now()
+        req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
+                      arrival=now,
+                      deadline=(now + deadline_s
+                                if deadline_s is not None else None),
+                      do_sample=bool(do_sample),
+                      temperature=float(temperature), top_k=int(top_k),
+                      top_p=float(top_p), seed=seed, n=1,
+                      logprobs=bool(logprobs),
+                      request_id=(str(request_id)
+                                  if request_id is not None else None),
+                      speculative=(None if speculative is None
+                                   else bool(speculative)))
+        req.out_tokens = out_tokens
+        req.device_seed = int(meta["device_seed"]) & 0x7FFFFFFF
+        # TTFT belongs to the exporting engine; tokens here are TPOT
+        req.first_token_at = req.last_token_at = now
+        self.cache.import_pages(req.seq_id, meta, k_arrays, v_arrays,
+                                prompt=prompt,
+                                hist_len=prompt.size + len(out_tokens))
+        self._requests[req.req_id] = req
+        self.scheduler.register_adopted(req)
+        self.metrics.pages_imported.inc(int(meta["n_pages"]))
+        self.metrics.adoptions.inc()
+        return req.req_id
+
+    # -- prefix ships and the host tier ------------------------------------
+    def export_prefix(self, prompt, skip_pages=0):
+        """This engine's cached prefix of ``prompt`` as a payload (read
+        only on refcounts; PrefixDrift when the local chain is shorter
+        than ``skip_pages``)."""
+        meta, k, v = self.cache.export_prefix_pages(prompt, skip_pages)
+        self.metrics.prefix_pages_exported.inc(int(meta["n_pages"]))
+        return meta, k, v
+
+    def import_prefix(self, meta, k_arrays, v_arrays):
+        """Land a shipped prefix payload in the radix tree (its pages
+        enter cached at rc 0). Returns the page count."""
+        n = self.cache.import_prefix_pages(meta, k_arrays, v_arrays)
+        self.metrics.prefix_pages_imported.inc(n)
+        return n
+
+    def drop_prefix(self, prompt):
+        """Evict this engine's unpinned cached chain for ``prompt`` and
+        its subtree, deepest first. Returns the pages freed."""
+        n = self.cache.drop_prefix(prompt)
+        self.metrics.prefix_drops.inc(n)
+        return n
+
+    def restore_prefix(self, prompt):
+        """Best-effort host-tier restore of ``prompt``'s missing prefix
+        pages (they enter cached at rc 0). Returns the pages restored;
+        0 with no tier."""
+        if self.kvtier is None:
+            return 0
+        return self.kvtier.restore(self.cache, prompt)
+
+    def prewarm_prefix(self, max_chains=None):
+        """Restore the hottest spilled chains into the radix tree.
+        Returns the pages restored; best-effort."""
+        if self.kvtier is None:
+            return 0
+        return self.kvtier.prewarm(self.cache, max_chains)
+
+    def tier_stats(self):
+        """Host/disk tier occupancy and counters; None with no tier."""
+        return None if self.kvtier is None else self.kvtier.stats()
 
     @property
     def last_logits(self):
@@ -521,6 +728,8 @@ class ServingEngine:
             except OutOfPages:
                 victim = self.scheduler.pick_victim(exclude=(req,))
                 if victim is None:
+                    if self._release_waiting_pins():
+                        continue
                     raise RuntimeError(
                         f"KV cache too small: request {req.req_id} "
                         f"cannot fit even alone "
@@ -532,6 +741,19 @@ class ServingEngine:
                 self.cache.apply_copies(copies)
                 self.metrics.cow_copies.inc(len(copies))
             return slots
+
+    def _release_waiting_pins(self, exclude=None):
+        """Free the prefix pins of WAITING (not yet admitted) requests,
+        so that their cached pages become reclaimable under pressure;
+        the requests re-match at admission. Returns the pins
+        released."""
+        released = 0
+        for r in self.scheduler.waiting:
+            if r is not exclude and self.cache.has_seq(r.seq_id):
+                self.cache.free_seq(r.seq_id)
+                r.cached_pages = 0
+                released += 1
+        return released
 
     def _preempt(self, victim):
         if self.cache.has_seq(victim.seq_id):
@@ -846,6 +1068,8 @@ class ServingEngine:
         toks, lps = _tokens(self._run(sc, self._step_body(req.do_sample),
                                       {req.req_id: 0}))
         self.metrics.prefill_chunks.inc()
+        # the chunk's full PROMPT pages now hold K/V: register them
+        self.cache.commit_prefix(req.seq_id, req.prompt, end)
         self.scheduler.prefill_advanced(req, end)
         if req.state != RequestState.RUNNING:
             return  # more chunks to go
@@ -871,6 +1095,14 @@ class ServingEngine:
                 self._rows[child.req_id] = row
                 ctok, clp = _sample_row(logits, child)
                 self._emit_token(child, ctok, events, logprob=clp)
+        if req.prefill_only and req.state == RequestState.RUNNING:
+            # the migration's handoff point: the first token is out and
+            # the request stops before its first decode step, its pages
+            # kept for export_request until release_request or cancel
+            self.scheduler.finish(req, "prefilled")
+            self._held[req.req_id] = req
+            self.metrics.prefills_held.inc()
+            self._record_finish(req, events)
 
     # -- the unified ragged step -------------------------------------------
     def _ragged_step(self, out, events):
@@ -1019,6 +1251,7 @@ class ServingEngine:
                              logprob=float(lps[row]))
         if pf is not None:
             req, start, end = pf[:3]
+            self.cache.commit_prefix(req.seq_id, req.prompt, end)
             self.scheduler.prefill_advanced(req, end)
             if req.state == RequestState.RUNNING:
                 row = rows[req.req_id]
@@ -1079,6 +1312,24 @@ class ServingEngine:
         events.append(ev)
         if self.on_event is not None:
             self.on_event(ev)
+
+    def _sync_prefix_metrics(self):
+        c, m = self.cache, self.metrics
+        m.prefix_hit_pages.value = c.prefix_hit_pages
+        m.prefix_miss_pages.value = c.prefix_miss_pages
+        m.prefix_evictions.value = c.prefix_evictions
+        total = c.prefix_hit_pages + c.prefix_miss_pages
+        m.prefix_hit_rate.set(c.prefix_hit_pages / total if total
+                              else 0.0)
+        m.cached_pages_gauge.set(c.cached_pages)
+        if self.kvtier is not None:
+            st = self.kvtier.pool.stats()
+            m.host_pool_pages.set(st["host_pool_pages"])
+            m.host_pool_bytes.set(st["host_pool_bytes"])
+            m.disk_pool_pages.set(st.get("disk_pool_pages", 0))
+        if m.spec_draft_tokens.value:
+            m.spec_acceptance_rate.set(m.spec_accepted_tokens.value
+                                       / m.spec_draft_tokens.value)
 
     def _step_body(self, sample_capable):
         def body(x):

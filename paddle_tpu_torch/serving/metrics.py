@@ -97,6 +97,35 @@ class ServingMetrics:
         # per-page byte cost incl. int8 scale rows — what the
         # hbm_budget sizing divides by
         self.kv_page_bytes = Gauge()
+        # the prefix cache
+        self.prefix_hit_pages = Counter()     # prompt pages served from
+        self.prefix_miss_pages = Counter()    # the radix tree vs prefilled
+        self.prefix_evictions = Counter()     # cached pages LRU-reclaimed
+        self.prefix_hit_rate = Gauge()        # hit/(hit+miss), cumulative
+        self.cached_pages_gauge = Gauge()     # pages resident in the tree
+        # page migration and prefix ships
+        self.prefills_held = Counter()        # requests held "prefilled"
+        self.held_expired = Counter()         # held pages released on
+        #                                       deadline expiry
+        self.pages_exported = Counter()       # KV pages shipped out
+        self.pages_imported = Counter()       # KV pages spliced in
+        self.adoptions = Counter()            # migrated-in requests
+        self.prefix_pages_exported = Counter()  # cached pages donated
+        self.prefix_pages_imported = Counter()  # cached pages received
+        self.prefix_drops = Counter()         # drop_prefix pages
+        # the host/disk tiers: spill and restore
+        self.tier_spill_pages = Counter()     # pages landed in the tier
+        self.tier_spill_dropped = Counter()   # spills shed/failed
+        self.tier_restore_pages = Counter()   # pages restored to device
+        self.tier_restore_hits = Counter()    # restores that moved pages
+        self.tier_restore_misses = Counter()  # probes the tier missed
+        self.tier_corrupt_dropped = Counter()  # CRC-failed entries purged
+        self.tier_spill_s = Histogram()       # flush time a spilled page
+        self.tier_restore_s = Histogram()     # time a restore
+        self.tier_restore_hit_rate = Gauge()  # hits/(hits+misses), cumul.
+        self.host_pool_pages = Gauge()        # RAM-tier resident pages
+        self.host_pool_bytes = Gauge()
+        self.disk_pool_pages = Gauge()        # disk-tier resident pages
 
     def export(self):
         return {name: m.export() for name, m in vars(self).items()}

@@ -13,9 +13,13 @@ Policy, per iteration (``schedule(now)``):
    head of the admitted-but-unprefilled queue) rides along, so admission
    never starves decode latency.
 4. **Admission by free-page watermark** — a waiting request is admitted
-   only when the free pages cover its FULL token history plus a reserved
-   watermark (head-room that keeps running decodes from thrashing the
-   preemption path on every page boundary).
+   only when the available pages (free list + reclaimable cached pages)
+   cover its FULL token history plus a reserved watermark (head-room
+   that keeps running decodes from thrashing the preemption path on
+   every page boundary). With the prefix cache on, admission first runs
+   a longest-prefix match (``cache.acquire_prefix``) so the page need
+   counts only UNCACHED pages, and ``prefill_pos`` starts past the
+   cached tokens (the engine prefills only the tail).
 
 Preemption by page pressure is engine-initiated (the allocator raises
 OutOfPages mid-step): ``pick_victim`` chooses the NEWEST live request
@@ -28,9 +32,6 @@ Speculative decoding (``spec_reserve_tokens`` = k): a verify round
 appends up to k+1 slots a lane, so admission charges every request's
 worst-case round growth, and running lanes keep their next round's
 growth reserved: a verify burst never preempts an admitted decode.
-
-The JAX package's prefix-cache and migration branches are left out with
-the features they serve.
 """
 from __future__ import annotations
 
@@ -68,7 +69,10 @@ class Request:        # field-wise __eq__ broadcast inside `in` checks
     logprobs: bool = False             # emit per-token logprob in events
     request_id: str | None = None      # client/router trace id
     speculative: bool | None = None    # False: opt out of spec rounds
+    prefill_only: bool = False         # migration: stop before decode
     device_seed: int = 0               # per-request sampling seed
+    cached_pages: int = 0              # prefix-cache pages at last acquire
+    prefix_counted: bool = False       # hit/miss stats recorded this pass
     req_id: int = field(default_factory=lambda: next(_req_ids))
     state: str = RequestState.WAITING
     out_tokens: list = field(default_factory=list)
@@ -100,6 +104,8 @@ class Request:        # field-wise __eq__ broadcast inside `in` checks
         self.prefill_pos = 0
         self.state = RequestState.WAITING
         self.preemptions += 1
+        self.prefix_counted = False    # the recompute prefill is a new
+        self.cached_pages = 0          # cache pass; stats count it too
 
 
 @dataclass
@@ -141,6 +147,15 @@ class Scheduler:
         self.running.append(child)
         self._admit_order.append(child)
 
+    def register_adopted(self, req: Request):
+        """A migrated-in request (its history's K/V imported) enters
+        RUNNING directly; preemption treats it like any running request
+        (a recompute prefill of its full history)."""
+        req.state = RequestState.RUNNING
+        req.prefill_pos = len(req.token_history())
+        self.running.append(req)
+        self._admit_order.append(req)
+
     def live_requests(self):
         return list(self.prefill_queue) + list(self.running)
 
@@ -156,11 +171,40 @@ class Scheduler:
         prefill = None
         if self.prefill_queue:
             req = self.prefill_queue[0]
+            self._refresh_prefix(req)
             hist = req.token_history()
+            if self.cache.prefix_cache_enabled \
+                    and not req.prefix_counted:
+                # this request's prefill starts now: its hit/miss split
+                # is final (one count a prefill pass)
+                self.cache.record_prefix_stats(
+                    req.prompt, len(hist), req.cached_pages)
+                req.prefix_counted = True
             end = min(req.prefill_pos + self.prefill_chunk, len(hist))
             prefill = (req, req.prefill_pos, end)
         return SchedulerOutput(decode=decode, prefill=prefill,
                                expired=expired)
+
+    def _refresh_prefix(self, req):
+        """Re-run the longest-prefix match when ``req`` reaches the head
+        of the prefill queue while it has written no K/V of its own
+        (every held page is still a pinned cache page): in a burst of
+        shared-prefix requests the first commits the prefix while the
+        rest wait, and would otherwise all prefill it again."""
+        if not self.cache.prefix_cache_enabled:
+            return
+        sid = req.seq_id
+        if not self.cache.has_seq(sid) \
+                or self.cache.pages_held(sid) != req.cached_pages:
+            return  # already prefilling its own pages: too late
+        hist = req.token_history()
+        if self.cache.probe_prefix(req.prompt, len(hist)) \
+                <= req.cached_pages:
+            return
+        self.cache.free_seq(sid)
+        req.cached_pages = self.cache.acquire_prefix(
+            sid, req.prompt, len(hist))
+        req.prefill_pos = self.cache.seq_len(sid)
 
     def _sweep_deadlines(self, now):
         expired = []
@@ -181,9 +225,9 @@ class Scheduler:
         return expired
 
     def worst_case_need(self, req):
-        """Pages ``req`` still needs to cover its history plus one full
-        decode round (1 token, or 1 + ``spec_reserve_tokens`` with
-        speculative decoding on) — the admission unit."""
+        """Uncached pages ``req`` still needs to cover its history plus
+        one full decode round (1 token, or 1 + ``spec_reserve_tokens``
+        with speculative decoding on) — the admission unit."""
         need = self.cache.pages_for(len(req.token_history()) + 1
                                     + self.spec_reserve_tokens)
         return max(0, need - self.cache.pages_held(req.seq_id))
@@ -207,12 +251,23 @@ class Scheduler:
             slots = len(self.prefill_queue) + len(self.running)
             if slots + req.n > self.max_batch:
                 break
+            if self.cache.prefix_cache_enabled \
+                    and not self.cache.has_seq(req.seq_id):
+                # longest-prefix match (the recompute path re-matches
+                # here; fresh submissions were pinned at add_request)
+                req.cached_pages = self.cache.acquire_prefix(
+                    req.seq_id, req.prompt, len(req.token_history()))
+            # only UNCACHED pages count: the matched prefix is already
+            # held by the sequence (pages_held)
             need = self.worst_case_need(req)
             if self.cache.available_pages - committed \
                     < need + self.watermark_pages:
                 break  # FIFO head-of-line: younger requests must wait too
             self.waiting.popleft()
             req.state = RequestState.PREFILLING
+            if self.cache.has_seq(req.seq_id):
+                # skip cached tokens: prefill only the tail
+                req.prefill_pos = self.cache.seq_len(req.seq_id)
             self.prefill_queue.append(req)
             self._admit_order.append(req)
             committed += need

@@ -41,6 +41,9 @@ from paddle_tpu_torch.ops import flash_attention as TFA
 
 ATOL = 1e-5
 GRAD_ATOL = 1e-4
+# the JAX side's kernels (interpret mode) compiled as one program without
+# LLVM's optimisation passes: the same values, a fifth of the compile time
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 S, H, HKV, D = 256, 4, 2, 64
 
 
@@ -152,13 +155,17 @@ def test_plain_kernels_match_the_pallas_kernels(case):
     seed = 99
     jseg = {} if qs is None else dict(q_seg=jnp.asarray(qs),
                                       kv_seg=jnp.asarray(ks))
-    jdrop = dict(dropout_p=p, dropout_seed=jnp.asarray([seed], jnp.int32)) \
-        if p else {}
+    jdrop = dict(dropout_seed=jnp.asarray([seed], jnp.int32)) if p else {}
+    drop_p = dict(dropout_p=p) if p else {}
     jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
-    jo, jlse = JK.fa_forward(jq, jk, jv, causal=causal, return_lse=True,
-                             interpret=True, **jseg, **jdrop)
-    want = JK.fa_backward(jq, jk, jv, jo, jlse, jdo, causal=causal,
-                          interpret=True, **jseg, **jdrop)
+
+    def run(a, b_, c, d, **arrs):
+        o, lse = JK.fa_forward(a, b_, c, causal=causal, return_lse=True,
+                               interpret=True, **drop_p, **arrs)
+        return o, lse, JK.fa_backward(a, b_, c, o, lse, d, causal=causal,
+                                      interpret=True, **drop_p, **arrs)
+    jo, jlse, want = jax.jit(run, compiler_options=FAST_COMPILE)(
+        jq, jk, jv, jdo, **jseg, **jdrop)
     kw = dict(causal=causal, q_seg=_t(qs), kv_seg=_t(ks),
               dropout_p=p, seed=seed if p else None)
     tq, tk_, tv, tdo = map(_t, (q, k, v, do))
@@ -169,10 +176,11 @@ def test_plain_kernels_match_the_pallas_kernels(case):
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
         _close(g, w, GRAD_ATOL, name)
     if p:
-        # the JAX package's parity oracle for the dropout arm
-        jref = JFA._attention_ref_hash_dropout(
-            jq, jk, jv, jnp.asarray([seed], jnp.int32), p, causal=causal,
-            **jseg)
+        # the JAX package's parity oracle for the dropout arm, as one
+        # program (op by op, its eager compiles took ~1.5 s a case)
+        jref = jax.jit(lambda *xs, **sg: JFA._attention_ref_hash_dropout(
+            *xs, p, causal=causal, **sg), compiler_options=FAST_COMPILE)(
+                jq, jk, jv, jnp.asarray([seed], jnp.int32), **jseg)
         _close(out, jref, ATOL, "out vs _attention_ref_hash_dropout")
         _close(TFA._attention_ref_hash_dropout(
             tq, tk_, tv, seed, p, causal=causal, q_seg=_t(qs),
@@ -203,7 +211,8 @@ def _jax_vjp(f, xs, ct):
     def run(a, b_, c, ct_):
         out, vjp = jax.vjp(f, a, b_, c)
         return out, vjp(ct_)
-    return jax.jit(run)(*map(jnp.asarray, xs), ct)
+    return jax.jit(run, compiler_options=FAST_COMPILE)(
+        *map(jnp.asarray, xs), ct)
 
 
 def test_flash_attention_bshd_key_padding_matches_jax_with_grads():
@@ -237,31 +246,38 @@ def test_flash_attention_bshd_dropout_matches_the_jax_kernel_path(
     """The JAX package's in-kernel dropout (its switch on, the Pallas
     kernels in interpret mode) at the seed it drew, which the test reads
     off its ``_flash_core_drop`` call and hands to the port; with a
-    key-padding mask, so the segment and dropout arms run together."""
+    key-padding mask, so the segment and dropout arms run together. The
+    JAX side's forward and backward run as one program (``jax.vjp``
+    under ``jax.jit``; the seed comes off the device by a callback)."""
     monkeypatch.setattr(JFA, "_FORCE_INTERPRET", True)
     monkeypatch.setattr(JFA, "_kernel_dropout_enabled", lambda: True)
     seeds = []
     real = JFA._flash_core_drop
 
     def spy(q_, k_, v_, seed, *rest):
-        seeds.append(seed)
+        jax.debug.callback(
+            lambda s_: seeds.append(int(np.asarray(s_).reshape(-1)[0])),
+            seed)
         return real(q_, k_, v_, seed, *rest)
     monkeypatch.setattr(JFA, "_flash_core_drop", spy)
     q, k, v, do = _inputs(41, b=2, sq=128, sk=128, h=4, hkv=2)
     pad = np.ones((2, 1, 1, 128), bool)
     pad[1, ..., 77:] = False
-    xs_j = [Tensor(jnp.asarray(x), stop_gradient=False) for x in (q, k, v)]
-    jout = JFA.flash_attention_bshd(*xs_j, mask=Tensor(jnp.asarray(pad)),
-                                    causal=True, dropout_p=0.2)
-    (jout * Tensor(jnp.asarray(do))).sum().backward()
-    seed = int(np.asarray(seeds[0]).reshape(-1)[0])
+
+    def f(a, b_, c):
+        return JFA.flash_attention_bshd(Tensor(a), Tensor(b_), Tensor(c),
+                                        mask=Tensor(jnp.asarray(pad)),
+                                        causal=True, dropout_p=0.2)._data
+    jout, jgrads = _jax_vjp(f, (q, k, v), jnp.asarray(do))
+    jax.effects_barrier()
+    seed = seeds[0]
     xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     out = TFA.flash_attention_bshd(*xs, mask=_t(pad), causal=True,
                                    dropout_p=0.2, seed=seed)
     out.backward(_t(do))
-    _close(out.detach(), jout._data, ATOL, "out")
-    for name, x, xj in zip(("dq", "dk", "dv"), xs, xs_j):
-        _close(x.grad, xj.grad._data, GRAD_ATOL, name)
+    _close(out.detach(), jout, ATOL, "out")
+    for name, x, w in zip(("dq", "dk", "dv"), xs, jgrads):
+        _close(x.grad, w, GRAD_ATOL, name)
 
 
 UNPADDED_CASES = [  # (name, q lengths, k lengths, causal)

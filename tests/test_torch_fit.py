@@ -126,6 +126,9 @@ def test_fit_evaluate_predict_match_jax():
     assert tmodel._optimizer._clip_factor.item() < 1
 
     held = _rows(1, 4)
+    # the trained JAX forward as one program (its jit.to_static) for
+    # evaluate and predict: op by op, its eager compiles took ~3 s
+    P.jit.to_static(jmodel.network)
     data = io.DataLoader(io.TensorDataset([held, held]), batch_size=BATCH)
     jdata = P.io.DataLoader(P.io.TensorDataset([held, held]),
                             batch_size=BATCH)

@@ -176,14 +176,19 @@ DROP_CFG = dict(vocab_size=64, hidden_size=128, num_hidden_layers=2,
 def test_attention_dropout_matches_jax_at_the_same_seeds(monkeypatch):
     """Training forward with attention dropout 0.1 and right-padded rows:
     the JAX package's kernel-dropout path (interpret mode) draws a seed
-    per layer; the test reads them and hands the port the same."""
+    per layer; the test reads them and hands the port the same. The JAX
+    forward runs as one program (its ``jit.to_static``; the seeds come
+    off the device by a callback): op by op, the interpret-mode kernels'
+    eager loops took ~2 s more."""
+    import jax
     monkeypatch.setattr(JFA, "_FORCE_INTERPRET", True)
     monkeypatch.setattr(JFA, "_kernel_dropout_enabled", lambda: True)
     seeds = []
     real = JFA._flash_core_drop
 
     def spy(q, k, v, seed, *rest):
-        seeds.append(int(np.asarray(seed).reshape(-1)[0]))
+        jax.debug.callback(
+            lambda s: seeds.append(int(np.asarray(s).reshape(-1)[0])), seed)
         return real(q, k, v, seed, *rest)
     monkeypatch.setattr(JFA, "_flash_core_drop", spy)
     P.seed(0)
@@ -196,7 +201,9 @@ def test_attention_dropout_matches_jax_at_the_same_seeds(monkeypatch):
     tm.train()
     ids = np.random.default_rng(2).integers(0, 64, (2, 128)).astype(np.int32)
     mask = _padding(2, 128, (128, 90))
-    want = np.asarray(jm(P.to_tensor(ids), None, P.to_tensor(mask))._data)
+    want = np.asarray(P.jit.to_static(lambda x, m: jm(x, None, m))(
+        P.to_tensor(ids), P.to_tensor(mask))._data)
+    jax.effects_barrier()
     assert len(seeds) == 2
     monkeypatch.setattr(tm.gpt, "attention_seeds", lambda *a: seeds)
     fa_kernel.reset_stats()

@@ -23,8 +23,9 @@ from paddle_tpu.serving import ServingEngine as JaxServingEngine
 from paddle_tpu.serving import sampling as JS
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      state_dict_from_paddle_tpu)
-from paddle_tpu_torch.serving import (OutOfPages, PagedKVCache,
-                                      ServingEngine, quantize_q8)
+from paddle_tpu_torch.serving import (HostPagePool, OutOfPages,
+                                      PagedKVCache, ServingEngine,
+                                      quantize_q8)
 from paddle_tpu_torch.serving import attention as TA
 from paddle_tpu_torch.serving import sampling as TS
 
@@ -431,13 +432,20 @@ def test_engine_sampling_forks_and_cancel():
 @pytest.mark.parametrize("arg", [
     dict(prefix_cache=True), dict(draft_model=object()),
     dict(speculative_k=2), dict(weight_quant="int8"),
-    dict(chaos=object()), dict(host_pool=object()),
+    dict(chaos=object()),
+    dict(prefix_cache=True, host_pool=HostPagePool(1 << 20)),
     dict(distill=object()), dict(mesh=object()), dict(tp_degree=2)])
 def test_unported_engine_arguments_raise(arg):
     """The arguments outside the port raise NotImplementedError; the
     speculative ones are ported and refuse what is wrong (a draft that
-    is no causal LM, a k without a draft)."""
+    is no causal LM, a k without a draft); the prefix cache and its host
+    tier are ported and accepted."""
     _, tm = _transplanted()
+    if "prefix_cache" in arg:
+        eng = ServingEngine(tm, num_pages=8, device="cpu", **arg)
+        assert eng.cache.prefix_cache_enabled
+        assert (eng.kvtier is not None) == ("host_pool" in arg)
+        return
     want = (TypeError if "draft_model" in arg else
             ValueError if "speculative_k" in arg else NotImplementedError)
     with pytest.raises(want):
