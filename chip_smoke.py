@@ -222,6 +222,32 @@ Phases, each of which passes or ends the script with a non-zero code:
    versions; the rotary embedding of ``incubate.nn.functional`` in bf16
    against its float32 form. The dense route's count must read 0 after
    each training, serving and generate phase.
+22. ``quant`` (run before ``attn_cases``): K7, the weight-only GEMM, against
+   its plain version on the card at the path's (k, n) (LLaMA-2-7B's
+   4096->4096, 4096->11008, 11008->4096, Mistral's 4096->1024, GPT-3
+   1.3B's 2048->6144 with its bias, and k 4128, which takes the CUDA-core
+   bf16 decode form) and rows 1, 3, 8, 17, 40, 256, 264 and 4096: int8
+   and int4, per-channel and grouped scales (64 and 128; 24 and 96 at k
+   4128, 24 looking each element's scale up), bf16 (within one bf16
+   rounding of the sum, and of the bias add) and float32 (1e-5 of the
+   element plus 1e-4 of the RMS); planted faults (int4 nibbles swapped,
+   a group's scale from the next column, the last k column dropped)
+   must fail; the A8 arm bit for bit. Timed beside its plain version,
+   cuBLAS bf16 on the unquantized weight (a yardstick the port never
+   calls there) and its bound. A PTQ drive through the A8 arm. Then
+   ``ServingEngine(weight_quant="int8")`` and ``"int4"`` over LLaMA-2-7B
+   at full width and depth on the serve phase's requests: K7 launched 7
+   x layers x forwards (per replay; decode steps the decode form,
+   prefill chunks the tile form), its plain version never; the trunk's
+   bytes with scales <= 0.51x (int8) and 0.26x (int4) of bf16's; the
+   serve phase's dense checks against a float32 model of the quantized
+   weights (the codes dequantized as K7 rounds them, then widened). At
+   8 layers, the ragged
+   step with the int8 cache, the prefix cache and a 2-layer draft
+   against the bucketed int8 engine: streams equal but at a dense tie,
+   K7's launches per class. Greedy ``generate()`` over int8 LLaMA-2-7B
+   (8 x 512, 128 new) and GPT-3 1.3B (8 x 128, 32 new; K7's bias arm):
+   exact K5 and K7 counts, the dense checks on that float32 model.
 
 Serving phases report TTFT p50 and max, decode tokens/s (steps with no
 prefill chunk), output tokens/s, step time p50 and max and peak memory.
@@ -3375,6 +3401,12 @@ PROMPT_LENS = (32, 1024, 200, 512, 77, 900, 333, 640)
 SAMPLED = (2, 5)          # request indices that sample; the rest greedy
 NEW_TOKENS = 32
 COSINE_MIN = 0.999        # engine vs dense last-prompt-token logits
+# a bf16 engine against a float32 model of its own weights: the bf16
+# trunk's rounding over 32 random layers, not the kernels', sets how far
+# apart they sit (the unquantized engine read 0.9977 on an H100, as low
+# as the int8 one); a fault in K7 (a wrong scale row, a dropped column)
+# or a stale graph input moves the logits far past this
+COSINE_MIN_F32 = 0.995
 # argmax must agree where the dense top-2 gap exceeds this: about twice
 # the bf16 noise between the chunked paged path and the dense forward
 # (max abs logit difference 0.19-0.23 at full depth on an H100)
@@ -3405,10 +3437,16 @@ def warm_up(eng, vocab):
 
 def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
                  ragged=False, prompt_lens=PROMPT_LENS, sampled=SAMPLED,
-                 num_pages=KV_POOL_PAGES, max_seq_len=None):
+                 num_pages=KV_POOL_PAGES, max_seq_len=None,
+                 weight_quant=None):
+    """``weight_quant``: the engine converts the model's trunk to int8 or
+    int4 codes (K7): its launches are checked beside K5's, the trunk's
+    weight bytes before and after are read, and the dense checks run on
+    a float32 model of the quantized weights (:func:`quant_twin`)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving import attention as A
 
@@ -3435,9 +3473,17 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
             first_logits[ev["req_id"]] = eng.logits_row(ev["req_id"]).clone()
             first_at[ev["req_id"]] = time.perf_counter()
 
+    trunk_before = trunk_weight_bytes(model)
     eng = ServingEngine(model, page_size=PAGE_SIZE, num_pages=num_pages,
                         max_batch=8, prefill_chunk=256, on_event=on_event,
-                        device=dev, ragged=ragged, max_seq_len=max_seq_len)
+                        device=dev, ragged=ragged, max_seq_len=max_seq_len,
+                        weight_quant=weight_quant)
+    trunk_after = trunk_weight_bytes(model)
+    if weight_quant:
+        print(f"weight_quant {weight_quant}: trunk weights "
+              f"{trunk_before / 1e9:.4f} GB -> {trunk_after / 1e9:.4f} GB "
+              f"(scales included), {trunk_after / trunk_before:.4f}x",
+              flush=True)
     print(f"kv pool: {eng.cache.num_pages} pages x {PAGE_SIZE} tokens, "
           f"{eng.cache.bytes_total / 2 ** 30:.2f} GiB "
           f"{eng.cache_dtype}; {'ragged' if ragged else 'bucketed'} step",
@@ -3454,6 +3500,7 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in prompt_lens]
     A.reset_stats()
+    WK.reset_stats()
     first_logits.clear()
     dispatches0 = m.step_dispatches.value
     fetches0 = m.step_fetches.value
@@ -3484,6 +3531,7 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
     steps = len(step_s)
     ttft = [first_at[r] - t_start for r in rids]
     counts = dict(A.stats)
+    k7_counts = dict(WK.stats)
     forwards = m.step_dispatches.value - dispatches0
     fetches = m.step_fetches.value - fetches0
     prefills = m.prefill_chunks.value - chunks0
@@ -3524,6 +3572,15 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
     if on_card and replays != forwards:
         raise AssertionError(f"{replays} CUDA graph replays for {forwards} "
                              "forwards: a step ran outside its graph")
+    if weight_quant and not ragged:
+        # the 7 products a layer and forward: a decode bucket (B <= 8
+        # rows) through the decode form, a 256-token chunk the tile form
+        k7_want = k7_expected(llama_linears(cfg), [
+            (1, forwards - prefills), (256, prefills)], on_card, layers)
+        if k7_counts != k7_want:
+            raise AssertionError(f"K7 counts {k7_counts}: want {k7_want}")
+        print(f"K7 ok: {k7_counts} ({layers} layers x 7 products x "
+              f"{forwards} forwards)", flush=True)
     print(f"engine ok: {len(rids)} requests x {NEW_TOKENS} tokens in "
           f"{steps} steps, {forwards} forwards ({prefills} with a prefill "
           f"chunk), {fetches} fetches, {m.step_program_classes.value:.0f} "
@@ -3531,10 +3588,29 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
           f"captured ({captured_run} in the timed run), {replays} replays "
           f"= forwards; K5 launches {counts}; plain calls 0", flush=True)
 
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+            else None)
     greedy = [i for i in range(len(prompts)) if i not in sampled]
-    worst_cos, tf = dense_checks(model, prompts, [res[r]["tokens"]
-                                                  for r in rids],
-                                 [first_logits[r] for r in rids], greedy)
+    firsts = [first_logits[r] for r in rids]
+    if weight_quant:
+        # against a float32 model of the quantized weights
+        f32 = quant_twin(model)
+        worst_cos, tf = dense_checks(f32, prompts, [res[r]["tokens"]
+                                                    for r in rids], firsts,
+                                     greedy, cos_min=COSINE_MIN_F32)
+        f32_cos = [r["cosine"] for r in tf]
+    else:
+        worst_cos, tf = dense_checks(model, prompts, [res[r]["tokens"]
+                                                      for r in rids],
+                                     firsts, greedy)
+        # the bf16 trunk's own distance from float32: the same weights in
+        # a float32 model (read, the yardstick of the quantized runs)
+        f32 = quant_twin(model)
+        f32_cos = first_cosines(f32, prompts, firsts, greedy)
+    del f32
+    print(f"first-token cosine against a float32 model of the same "
+          f"weights: min {min(f32_cos):.6f} over {len(f32_cos)} greedy "
+          "requests", flush=True)
 
     ex = m.export()
     tokens = len(rids) * NEW_TOKENS
@@ -3557,8 +3633,9 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
         teacher_forced=tf, launches=counts["kernel_launches"],
         form_launches={k: counts[k] for k in (
             "tile_launches", "decode_launches", "combine_launches")},
-        peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
-                      if on_card else None))
+        peak_mem_gib=peak, f32_cosines=f32_cos,
+        weight_quant=weight_quant, trunk_bytes_before=trunk_before,
+        trunk_bytes_after=trunk_after, k7_counts=k7_counts)
     tag = f"serving {label} [{smi}]"
     print(f"{tag}: TTFT p50 {summary['ttft_p50_s']:.4f} s max "
           f"{summary['ttft_max_s']:.4f} s ({len(rids)} requests queued at "
@@ -3579,10 +3656,11 @@ def engine_phase(cfg, smi, dev=None, profile_steps=0, *, label="llama2_7b",
     return summary
 
 
-def dense_checks(model, prompts, tokens, first_logits, greedy):
+def dense_checks(model, prompts, tokens, first_logits, greedy,
+                 cos_min=COSINE_MIN):
     """Each greedy request against one dense forward of the same model
     (plain float32 attention) over its prompt and its generated tokens
-    but the last: the first token's logits within cosine COSINE_MIN of
+    but the last: the first token's logits within cosine ``cos_min`` of
     the dense last-prompt-token logits; and, teacher-forced, every
     generated token the dense argmax at its position wherever the dense
     top-2 margin exceeds MARGIN (a graph that replayed stale positions,
@@ -3619,9 +3697,9 @@ def dense_checks(model, prompts, tokens, first_logits, greedy):
               f" of {len(toks)} tokens the dense argmax, {int(firm.sum())} "
               f"past the margin {MARGIN}, disagreeing there: {bad}",
               flush=True)
-        if cos < COSINE_MIN:
+        if cos < cos_min:
             raise AssertionError(f"prompt {p.size}: cosine {cos} < "
-                                 f"{COSINE_MIN}")
+                                 f"{cos_min}")
         if bad:
             raise AssertionError(f"prompt {p.size}: tokens {bad} differ "
                                  f"from the dense argmax past the margin")
@@ -4974,7 +5052,7 @@ def dense_logits(model, seq):
 
 
 def gen_dense_check(model, prompts, toks, margin, what, first_logits=None,
-                    adjust=None):
+                    adjust=None, cos_min=COSINE_MIN):
     """Each row of a greedy generate result against one dense forward over
     its prompt and its tokens but the last: the first token's prefill
     logits within cosine COSINE_MIN of the dense ones (when given), and,
@@ -5003,10 +5081,10 @@ def gen_dense_check(model, prompts, toks, margin, what, first_logits=None,
             cos = torch.nn.functional.cosine_similarity(got, dense[0],
                                                         dim=0).item()
             rd["cosine"] = cos
-            if not (cos >= COSINE_MIN and int(got.argmax()) == int(tk[0])):
+            if not (cos >= cos_min and int(got.argmax()) == int(tk[0])):
                 raise AssertionError(
                     f"generate {what} row {r}: first-token cosine {cos} "
-                    f"(>= {COSINE_MIN}) or its argmax {int(got.argmax())} "
+                    f"(>= {cos_min}) or its argmax {int(got.argmax())} "
                     f"!= the first token {int(tk[0])}")
         rows.append(rd)
         if bad:
@@ -5549,6 +5627,566 @@ def generate_phase(smi, dev=None, profile_steps=0):
     return res
 
 
+# -- weight-only quantization: K7 and the quantized paths ---------------------
+
+# K7 at the main path's (k, n): LLaMA-2-7B's q/k/v/o, gate/up and down,
+# Mistral-7B's k/v (n 1024) and GPT-3 1.3B's fused qkv with its bias
+K7_SHAPES = (("llama2_7b q/k/v/o", 4096, 4096, False),
+             ("llama2_7b gate/up", 4096, 11008, False),
+             ("llama2_7b down", 11008, 4096, False),
+             ("mistral_7b k/v", 4096, 1024, False),
+             ("gpt3_1_3b qkv", 2048, 6144, True),
+             ("k % 64 = 32 (bf16 decode on CUDA cores)", 4128, 1024, False))
+# group sizes where the shape's k is not a multiple of 64 or 128 (24: not
+# a multiple of 16 either, so each element looks its scale up)
+K7_GROUP_FOR = {(4128, 64): 24, (4128, 128): 96}
+# rows: decode 1 and 8, odd 3 and 17, the verify round's 40, a prefill
+# chunk's 256, a ragged step's 264 and a long prefill's 4096
+K7_MS = (1, 3, 8, 17, 40, 256, 264, 4096)
+K7_F32_MS = (1, 3, 40, 264)
+K7_ARMS = (("weight_only_int8", -1), ("weight_only_int4", -1),
+           ("weight_only_int8", 64), ("weight_only_int4", 128))
+K7_TIMED_MS = (1, 8, 40, 256)
+K7_ROW = ("llama2_7b gate/up", 8)   # the JSON rows' shape and rows
+K7_TILE_ROW = ("llama2_7b gate/up", 256)
+A8_SX = 3.25                          # an activation absmax (A8 cases)
+INT8_PEAK_OPS = 1979e12
+QUANT_NEW = 32
+QUANT_COMBO_LAYERS = 8
+QUANT_SHARED = 256                    # the combo run's shared prefix
+QUANT_GEN = (8, 512, 128)             # LLaMA-2-7B greedy, int8
+QUANT_GEN_GPT = (8, 128, 32)          # GPT-3 1.3B greedy, int8 (its bias)
+TRUNK_RATIO = {"int8": 0.51, "int4": 0.26}
+
+
+def llama_linears(cfg):
+    """The (k, n) of a LLaMA layer's seven products."""
+    h, m = cfg.hidden_size, cfg.intermediate_size
+    kv = (cfg.num_key_value_heads or cfg.num_attention_heads) * (
+        h // cfg.num_attention_heads)
+    return [(h, h), (h, kv), (h, kv), (h, h), (h, m), (h, m), (m, h)]
+
+
+def gpt_linears(cfg):
+    """The (k, n) of a GPT block's four biased products."""
+    h, m = cfg.hidden_size, cfg.intermediate_size
+    return [(h, 3 * h), (h, h), (h, m), (m, h)]
+
+
+def k7_expected(linears, forwards, on_card, layers):
+    """K7's counts over ``forwards`` = [(rows a forward, forwards)]: one
+    call a product, layer and forward, through the form K7's plan picks
+    for its shape (bf16), the tile form's second kernel where it splits
+    K; on the CPU the plain version instead."""
+    import torch
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+    want = dict.fromkeys(WK.stats, 0)
+    for m, times in forwards:
+        for k, n in linears:
+            c = layers * times
+            if not on_card:
+                want["plain_calls"] += c
+                continue
+            form, _, splits = WK.plan(m, n, k, torch.bfloat16)
+            want["kernel_launches"] += c
+            want["tile_launches" if form else "decode_launches"] += c
+            want["finish_launches"] += c * (form == 1 and splits > 1)
+    return want
+
+
+def trunk_weight_bytes(model):
+    """Bytes of every Linear of the trunk (``lm_head`` apart), weights or
+    codes and scales, and biases."""
+    from paddle_tpu_torch.nn.quant import WeightOnlyLinear
+    total = 0
+    for name, mod in model.named_modules():
+        if "lm_head" in name:
+            continue
+        if isinstance(mod, WeightOnlyLinear):
+            ts = [mod.qweight, mod.weight_scale, mod.bias]
+        elif type(mod).__name__ == "Linear":
+            ts = [mod.weight, mod.bias]
+        else:
+            continue
+        total += sum(t.numel() * t.element_size() for t in ts
+                     if t is not None)
+    return total
+
+
+def first_cosines(f32, prompts, first_logits, rows):
+    """Cosine of each of ``rows``' first-token logits with the last
+    prompt token's logits of a dense forward of ``f32``."""
+    import torch
+    out = []
+    for i in rows:
+        dense = dense_logits(f32, prompts[i])[-1]
+        out.append(torch.nn.functional.cosine_similarity(
+            first_logits[i].float(), dense, dim=0).item())
+    return out
+
+
+def quant_twin(model):
+    """A float32 model of a weight-only model's weights: each
+    WeightOnlyLinear a float32 Linear holding the weights K7 multiplies
+    by (its codes dequantized in the model's dtype, the scale and then
+    each weight rounded there, as the JAX package's), every other tensor
+    widened. Its dense forward (float32 attention) is the quantized
+    paths' reference."""
+    import copy
+    import torch
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.quant import WeightOnlyLinear
+    from paddle_tpu_torch.ops.weight_only_kernel import dequantize
+    # generate's programs hold CUDA graphs, which do not copy
+    programs = model.__dict__.pop("_gen_cache", None)
+    try:
+        twin = copy.deepcopy(model)
+    finally:
+        if programs is not None:
+            model._gen_cache = programs
+    dtype = next(model.parameters()).dtype
+    for mod in list(twin.modules()):
+        for name, sub in list(mod.named_children()):
+            if not isinstance(sub, WeightOnlyLinear):
+                continue
+            lin = Linear(sub.in_features, sub.out_features,
+                         bias=sub.bias is not None, device="meta")
+            w = dequantize(sub.qweight, sub.weight_scale,
+                           sub.weight_dtype == "int4", dtype)
+            lin.weight = torch.nn.Parameter(w.float(), requires_grad=False)
+            if sub.bias is not None:
+                lin.bias = torch.nn.Parameter(sub.bias.detach().float(),
+                                              requires_grad=False)
+            setattr(mod, name, lin)
+            del sub, w
+    return twin.float()
+
+
+def k7_case(k, n, m, algo, group, dtype, bias, seed, dev):
+    """Random weights N(0, 0.02) quantized by ``weight_quantize`` on the
+    card, x N(0, 1) in ``dtype``, a bias N(0, 0.02) in ``dtype``."""
+    import torch
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.randn(n, k, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    codes, scale = weight_quantize(w, algo=algo, group_size=group)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    b = ((torch.randn(n, generator=g, device=dev) * 0.02).to(dtype)
+         if bias else None)
+    return dict(w=w, codes=codes, scale=scale, x=x, b=b,
+                int4=algo.endswith("int4"))
+
+
+def k7_ratio(got, want, bias, dtype):
+    """The largest |got - want| / tol over the elements (pass <= 1). bf16:
+    the sums differ only in order, so the roundings to bf16 may land one
+    ulp apart (an ulp is at most 2^-7 of the value): tol = 2^-7 |want| +
+    2^-10 RMS(want); with a bias, the sum's rounding and the bias add's
+    each: tol = 2^-7 (2 |want| + |bias|) + 2^-10 RMS(want). float32: tol
+    = 1e-5 |want| + 1e-4 RMS(want), the sum's order over k <= 11008."""
+    import torch
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean().sqrt()
+    if dtype == torch.bfloat16:
+        if bias is None:
+            tol = 2 ** -7 * w.abs() + 2 ** -10 * rms
+        else:
+            tol = (2 ** -7 * (2 * w.abs() + bias.float().abs())
+                   + 2 ** -10 * rms)
+    else:
+        tol = 1e-5 * w.abs() + 1e-4 * rms
+    return ((g - w).abs() / tol).max().item()
+
+
+def k7_faults(dev):
+    """The plain outputs as a K7 with one fault would give them, held to
+    the same check: int4 nibbles swapped, a group's scale read from the
+    next group's column, the last k column dropped (int8 and int4)."""
+    import torch
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+    out = []
+    for algo, group in (("weight_only_int4", 128), ("weight_only_int8", 64)):
+        c = k7_case(4096, 4096, 8, algo, group, torch.bfloat16, False, 41,
+                    dev)
+        args = (c["x"], c["codes"], c["scale"], None)
+        want = WK.weight_only_matmul_plain(*args, int4=c["int4"])
+        q = c["codes"]
+        if c["int4"]:
+            swapped = ((q.to(torch.int32) & 0xF) << 4) | (
+                (q.to(torch.int32) >> 4) & 0xF)
+            swapped = torch.where(swapped >= 128, swapped - 256,
+                                  swapped).to(torch.int8)
+            out.append(("int4 nibbles swapped", WK.weight_only_matmul_plain(
+                c["x"], swapped, c["scale"], int4=True), want, None))
+        out.append((f"{algo[-4:]} g{group}: a group's scale from the next "
+                    "column", WK.weight_only_matmul_plain(
+                        c["x"], q, torch.roll(c["scale"], 1, dims=1)
+                        .contiguous(), int4=c["int4"]), want, None))
+        dropped = q.clone()
+        if c["int4"]:
+            dropped[:, -1] = dropped[:, -1] & 0x0F     # k - 1: high nibble
+        else:
+            dropped[:, -1] = 0
+        out.append((f"{algo[-4:]} g{group}: the last k column dropped",
+                    WK.weight_only_matmul_plain(c["x"], dropped, c["scale"],
+                                                int4=c["int4"]), want, None))
+    return out
+
+
+def k7_work(k, n, m, int4, groups, itemsize, bias):
+    """(bytes, operations) one call needs: x, codes, scales, bias read and
+    y written once; 2 m n k operations."""
+    nbytes = (m * k * itemsize + n * k // (2 if int4 else 1)
+              + n * groups * 4 + m * n * itemsize
+              + (n * itemsize if bias else 0))
+    return nbytes, 2 * m * n * k
+
+
+def k7_checks(dev="cuda"):
+    """K7 against its plain version in every arm and form (both dtypes,
+    int8 / int4, per-channel and grouped scales, with and without bias,
+    at K7_MS rows; float32 at K7_F32_MS), the planted faults rejected,
+    and A8 equal bit for bit. Returns (worst ratio, max abs err, A8
+    readings)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+
+    worst, max_err, seed = 0.0, 0.0, 0
+    for name, k, n, bias in K7_SHAPES:
+        for algo, group in K7_ARMS:
+            for dtype, ms in ((torch.bfloat16, K7_MS),
+                              (torch.float32, K7_F32_MS)):
+                for m in ms:
+                    seed += 1
+                    c = k7_case(k, n, m, algo,
+                                K7_GROUP_FOR.get((k, group), group), dtype,
+                                bias, seed, dev)
+                    args = (c["x"], c["codes"], c["scale"], c["b"])
+                    got = WK.weight_only_matmul_cuda(*args, int4=c["int4"])
+                    want = WK.weight_only_matmul_plain(*args,
+                                                       int4=c["int4"])
+                    torch.cuda.synchronize()
+                    r = k7_ratio(got, want, c["b"], dtype)
+                    err = (got.float() - want.float()).abs().max().item()
+                    if not (r <= 1.0 and torch.isfinite(got).all()):
+                        raise AssertionError(
+                            f"K7 {name} {algo} g{group} {dtype} M {m}: "
+                            f"ratio {r} > 1 (max abs err {err})")
+                    worst, max_err = max(worst, r), max(max_err, err)
+        print(f"K7 {name} (k {k}, n {n}{', bias' if bias else ''}): every "
+              f"arm within tolerance, worst ratio so far {worst:.3f}",
+              flush=True)
+    for what, got, want, b in k7_faults(dev):
+        r = k7_ratio(got, want, b, torch.bfloat16)
+        if r <= 1.0:
+            raise AssertionError(f"K7 planted fault passed the check: "
+                                 f"{what} (ratio {r})")
+        print(f"K7 planted fault rejected: {what} (ratio {r:.1f})",
+              flush=True)
+    a8 = []
+    for out_dtype in (torch.bfloat16, torch.float32):
+        for m in (1, 3, 8, 40, 264):
+            g = torch.Generator(device=dev).manual_seed(100 + m)
+            k, n = 4096, 11008
+            x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                              dtype=torch.int8)
+            codes = torch.randint(-127, 128, (n, k), generator=g,
+                                  device=dev, dtype=torch.int8)
+            scale = torch.rand(n, generator=g, device=dev) * 0.1 + 1e-3
+            sx = np.float32(A8_SX) / np.float32(127.0)
+            got = WK.int8_matmul_cuda(x, codes, scale, sx, out_dtype)
+            want = WK.int8_matmul_plain(x, codes, scale, sx, out_dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K7 A8 M {m} {out_dtype}: not bit-equal (max diff "
+                    f"{(got.float() - want.float()).abs().max().item()})")
+            bad = codes.clone()
+            bad[0, :64] = -bad[0, :64]      # one row's first codes negated
+            if torch.equal(got, WK.int8_matmul_plain(x, bad, scale, sx,
+                                                     out_dtype)):
+                raise AssertionError("K7 A8: changed codes went unseen")
+            a8.append(dict(m=m, out_dtype=str(out_dtype)))
+    print("K7 A8 arm: bit-equal to its plain version at M 1, 3, 8, 40, 264 "
+          "(bf16 and float32 out); changed codes rejected", flush=True)
+    return worst, max_err, a8
+
+
+def k7_timings(smi, dev="cuda"):
+    """K7 at the timed shapes: its time from CUDA-graph replays beside its
+    plain version's, cuBLAS bf16 on the unquantized weight (what the bf16
+    engine runs; never called on the quantized path) and the bound; A8 at
+    the row shape beside its plain version."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+
+    out = {}
+    for name, k, n, bias in K7_SHAPES[:-1]:
+        for algo in ("weight_only_int8", "weight_only_int4"):
+            for m in K7_TIMED_MS:
+                c = k7_case(k, n, m, algo, -1, torch.bfloat16, bias, 7, dev)
+                args = (c["x"], c["codes"], c["scale"], c["b"])
+                wb = c["w"]
+                ms = graph_ms(lambda: WK.weight_only_matmul_cuda(
+                    *args, int4=c["int4"]), 20)
+                plain = graph_ms(lambda: WK.weight_only_matmul_plain(
+                    *args, int4=c["int4"]), 5)
+                lib = graph_ms(lambda: F.linear(c["x"], wb, c["b"]), 20)
+                nb, ops = k7_work(k, n, m, c["int4"], 1, 2, bias)
+                b_ms, b_by = bound(nb, ops)
+                form = WK.plan(m, n, k, torch.bfloat16)
+                key = f"{name} {algo[-4:]} M {m}"
+                out[key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                bound_ms=b_ms, bound_by=b_by,
+                                form="tile" if form[0] else "decode",
+                                splits=form[2])
+                print(f"K7 {key} [{smi}]: {ms:.4f} ms ({out[key]['form']}"
+                      f" form) | bound {b_ms:.4f} ms ({b_by}) | plain "
+                      f"{plain:.4f} | cuBLAS bf16 unquantized {lib:.4f}",
+                      flush=True)
+    k, n = 4096, 11008
+    m = K7_ROW[1]
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    codes = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                          dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device=dev) * 0.1 + 1e-3
+    sx = np.float32(A8_SX) / np.float32(127.0)
+    xb = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    wb = torch.randn(n, k, generator=g, device=dev).to(torch.bfloat16)
+    ms = graph_ms(lambda: WK.int8_matmul_cuda(x, codes, scale, sx,
+                                              torch.bfloat16), 20)
+    # the plain version builds its constants on the host: not capturable
+    plain = cuda_ms(lambda: WK.int8_matmul_plain(x, codes, scale, sx,
+                                                 torch.bfloat16), 3)
+    lib = graph_ms(lambda: F.linear(xb, wb), 20)
+    nb = m * k + n * k + n * 4 + m * n * 2
+    b_ms, b_by = bound(nb, 2 * m * n * k, INT8_PEAK_OPS)
+    out["a8"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                     bound_by=b_by)
+    print(f"K7 A8 llama2_7b gate/up M {m} [{smi}]: {ms:.4f} ms | bound "
+          f"{b_ms:.4f} ms ({b_by}) | plain {plain:.4f} | cuBLAS bf16 "
+          f"{lib:.4f}", flush=True)
+    return out
+
+
+def ptq_drive(dev="cuda"):
+    """PTQ over LLaMA-2-7B's MLP width (4096 -> 11008 -> 4096, bf16):
+    calibrate on 4 batches, convert, one batch of 8 tokens through K7's
+    A8 arm (2 launches, no plain call); the output within the int8
+    grid's error of the float model's. Returns K7's counts."""
+    import torch
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+    from paddle_tpu_torch.quantization import PTQ, QuantizedInferenceLinear
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(Linear(4096, 11008), torch.nn.ReLU(),
+                              Linear(11008, 4096)).to(dev, torch.bfloat16)
+    ptq = PTQ()
+    ptq.quantize(net)
+    g = torch.Generator(device=dev).manual_seed(3)
+    batches = [torch.randn(8, 4096, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(5)]
+    with torch.inference_mode():
+        for b in batches[:4]:
+            net(b)
+        ref = net(batches[4]).float()
+    ptq.convert(net)
+    if not all(isinstance(net[i], QuantizedInferenceLinear) for i in (0, 2)):
+        raise AssertionError("PTQ convert left a Linear")
+    WK.reset_stats()
+    with torch.inference_mode():
+        got = net(batches[4]).float()
+    counts = dict(WK.stats)
+    if counts["a8_launches"] != 2 or counts["plain_calls"]:
+        raise AssertionError(f"PTQ drive: K7 counts {counts}")
+    rel = ((got - ref).norm() / ref.norm()).item()
+    if not rel < 0.05:
+        raise AssertionError(f"PTQ drive: relative error {rel} against the "
+                             "float model")
+    print(f"PTQ drive: 2 A8 launches, no plain call; relative error "
+          f"{rel:.4f} against the unquantized MLP", flush=True)
+    return dict(counts=counts, rel_err=rel)
+
+
+def quant_combo(smi, dev=None, cfg=None, draft_layers=SPEC_DRAFT_LAYERS,
+                shared=QUANT_SHARED, num_pages=KV_POOL_PAGES, new=QUANT_NEW):
+    """One int8 engine with ``ragged=True``, ``cache_dtype="int8"``, the
+    prefix cache and a ``draft_layers``-layer draft (not converted),
+    against the bucketed int8 engine with the int8 cache, over prompts
+    that share a ``shared``-token prefix, all greedy: streams equal but
+    at a dense tie; K7's launches what each class's dispatches make (the
+    draft's classes none), no plain call; prefix hits."""
+    import numpy as np
+    import torch
+    import dataclasses
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+    from paddle_tpu_torch.serving import ServingEngine
+
+    on_card = torch.device(dev or "cuda").type == "cuda"
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=QUANT_COMBO_LAYERS,
+                                       dtype="bfloat16",
+                                       use_flash_attention=False)
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model.eval()
+    draft = LlamaForCausalLM(dataclasses.replace(
+        cfg, num_hidden_layers=draft_layers), device=dev, seed=1)
+    draft.eval()
+    rng = np.random.default_rng(12)
+    head = rng.integers(1, cfg.vocab_size, shared).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(
+        1, cfg.vocab_size, n).astype(np.int32)]) for n in PROMPT_LENS]
+    streams, out = {}, {}
+    for label, kw in (("bucketed", {}),
+                      ("ragged+prefix+draft", dict(
+                          ragged=True, prefix_cache=True, draft_model=draft,
+                          speculative_k=SPEC_K))):
+        eng = ServingEngine(model, page_size=PAGE_SIZE, num_pages=num_pages,
+                            max_batch=8, prefill_chunk=256, device=dev,
+                            cache_dtype="int8", weight_quant="int8", **kw)
+        warm_up(eng, cfg.vocab_size)
+        before = {key: sc.dispatches for key, sc in eng._classes.items()}
+        WK.reset_stats()
+        rids = [eng.add_request(p, max_new_tokens=new, seed=1000 + i)
+                for i, p in enumerate(prompts)]
+        res = eng.run()
+        streams[label] = [res[r]["tokens"] for r in rids]
+        counts = dict(WK.stats)
+        per = 7 * L if on_card else 0
+        want = 0
+        for key, sc in eng._classes.items():
+            mine = 0 if key[0].startswith("draft") else per
+            if on_card and sc.graph is not None and \
+                    sc.wo_launches["kernel_launches"] != mine:
+                raise AssertionError(f"the graph of {key} captured K7 "
+                                     f"{sc.wo_launches}, want {mine} calls")
+            want += mine * (sc.dispatches - before.get(key, 0))
+        if counts["kernel_launches"] != want or (
+                on_card and counts["plain_calls"]):
+            raise AssertionError(f"quant {label}: K7 counts {counts}, want "
+                                 f"{want} calls and no plain call")
+        m = eng.metrics
+        out[label] = dict(k7_counts=counts,
+                          prefix_hit_pages=m.prefix_hit_pages.value,
+                          spec_rounds=m.spec_rounds.value)
+        print(f"quant combo {label}: {len(rids)} requests, K7 {counts}; "
+              f"prefix hit pages {m.prefix_hit_pages.value}, spec rounds "
+              f"{m.spec_rounds.value}", flush=True)
+        del eng
+    if out["ragged+prefix+draft"]["prefix_hit_pages"] <= 0:
+        raise AssertionError("quant combo: the prefix cache never hit")
+    twin = quant_twin(model)
+    reqs = [dict(seed=1000 + i) for i in range(len(prompts))]
+    out["departures"] = departures(twin, prompts, streams["bucketed"],
+                                   streams["ragged+prefix+draft"], reqs,
+                                   MARGIN, "quant combo")
+    print(f"quant combo: {len(prompts) - len(out['departures'])} of "
+          f"{len(prompts)} streams equal, the others departing at a dense "
+          f"tie (request, token, margin): {out['departures']}", flush=True)
+    return out
+
+
+def quant_generate(cfg, smi, label, shape, dev=None):
+    """Greedy generate() over a model converted to int8 (``lm_head``
+    apart): K5's and K7's counts exact (K7: its products, a layer and
+    forward, the prefill through the tile form, each decode step the
+    decode form), every decode step a graph replay; the dense checks on
+    its float32 twin; the readings."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM, LlamaForCausalLM
+    from paddle_tpu_torch.nn.quant import convert_to_weight_only
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+
+    on_card = torch.device(dev or "cuda").type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    b, s, new = shape
+    gpt = not hasattr(cfg, "rope_theta")
+    model = (GPTForCausalLM if gpt else LlamaForCausalLM)(cfg, device=dev,
+                                                          seed=0)
+    model.eval()
+    convert_to_weight_only(model, exclude=("lm_head",))
+    L = cfg.num_hidden_layers
+    linears = gpt_linears(cfg) if gpt else llama_linears(cfg)
+    rng = np.random.default_rng(13)
+    prompts = gen_prompts(rng, b, s, cfg.vocab_size)
+    ids = torch.as_tensor(np.stack(prompts), device=model.device)
+    fw = [(L, s, 1, True), (L, 1, new - 1, True)]
+    k7_want = k7_expected(linears, [(b * s, 1), (b, new - 1)], on_card, L)
+    for i in range(2):
+        _gen_reset()
+        WK.reset_stats()
+        out = model.generate(ids, new)
+        gen_check_counts(f"{label} greedy", gen_expected(
+            fw, on_card, 1, (1 - i) if on_card else 0),
+            (new - 1) if on_card else 0)
+        if dict(WK.stats) != k7_want:
+            raise AssertionError(f"generate {label}: K7 counts "
+                                 f"{dict(WK.stats)}, want {k7_want}")
+    res = {"k7_counts": dict(WK.stats)}
+    caches = model._init_caches(b, s + new)
+    with torch.inference_mode():
+        first = model._forward_cached(ids, caches, 0)[0][:, -1].float()
+    del caches
+    twin = quant_twin(model)
+    res["dense"], _ = gen_dense_check(twin, prompts, out.numpy(), MARGIN,
+                                      f"{label} greedy", first,
+                                      cos_min=COSINE_MIN_F32)
+    del twin
+    res["timed"], _ = gen_timed(model, ids, smi, f"{label} greedy", on_card,
+                                max_new_tokens=new)
+    print(f"generate {label}: K7 counts ok {res['k7_counts']}", flush=True)
+    return res
+
+
+def quant_phase(smi, dev=None, serve=None):
+    """The ``quant`` phase: K7 against its plain version and timed, a PTQ
+    drive through its A8 arm, LLaMA-2-7B served with int8 and int4
+    weights at full width and depth (the serve phase's requests), the
+    ragged / int8-cache / prefix / draft engine at 8 layers, and
+    generate() over int8 LLaMA-2-7B and GPT-3 1.3B."""
+    from paddle_tpu_torch.models import GPTConfig, LlamaConfig
+    worst, err, a8 = k7_checks(dev or "cuda")
+    res = {"k7": dict(worst_ratio=worst, max_abs_err=err, a8=a8),
+           "k7_timed": k7_timings(smi, dev or "cuda"),
+           "ptq": ptq_drive(dev or "cuda")}
+    cfg = LlamaConfig.llama2_7b(dtype="bfloat16", use_flash_attention=False)
+    for wq in ("int8", "int4"):
+        gc.collect()
+        r = engine_phase(cfg, smi, dev, label=f"llama2_7b {wq}",
+                         weight_quant=wq)
+        ratio = r["trunk_bytes_after"] / r["trunk_bytes_before"]
+        if not ratio <= TRUNK_RATIO[wq]:
+            raise AssertionError(f"{wq}: trunk bytes {ratio:.4f}x of bf16's "
+                                 f"(want <= {TRUNK_RATIO[wq]})")
+        res[wq] = r
+    if serve:
+        for key in ("decode_tok_s", "decode_step_p50_s", "ttft_p50_s",
+                    "peak_mem_gib"):
+            print(f"quant vs bf16 serve [{smi}]: {key} bf16 {serve[key]} | "
+                  f"int8 {res['int8'][key]} | int4 {res['int4'][key]}",
+                  flush=True)
+    gc.collect()
+    res["combo"] = quant_combo(smi, dev)
+    gc.collect()
+    res["gen_llama"] = quant_generate(cfg, smi, "llama2_7b int8", QUANT_GEN,
+                                      dev)
+    gc.collect()
+    res["gen_gpt"] = quant_generate(GPTConfig.gpt3_1_3b(
+        dtype="bfloat16", hidden_dropout_prob=0.0,
+        attention_dropout_prob=0.0), smi, "gpt3_1_3b int8", QUANT_GEN_GPT,
+        dev)
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", metavar="PATH",
@@ -5730,6 +6368,9 @@ def main(argv=None):
     if res["dense_after"]:
         print(f"dense route: 0 calls after each of "
               f"{', '.join(res['dense_after'])}", flush=True)
+    if "quant" in phases:
+        res["quant"] = phase("quant", quant_phase, smi,
+                             serve=res.get("engine"))
     if "attn_cases" in phases:
         res["attn_cases"] = phase("attn_cases", attn_cases_phase)
 
@@ -5752,11 +6393,11 @@ def main(argv=None):
 PHASES = ("kernels", "masked", "dropseg", "train", "mistral", "packed",
           "mistral_path", "gpt", "gpt_path", "fit", "full_attn", "offload",
           "optimizers", "workers", "serve", "ragged", "spec", "prefix",
-          "generate", "attn_cases")
+          "generate", "quant", "attn_cases")
 # the phases of the main paths (training, serving, generate): none of them
 # may take flash attention's dense route
 DENSE_FREE = ("train", "mistral", "gpt", "fit", "full_attn", "offload",
-              "serve", "ragged", "spec", "prefix", "generate")
+              "serve", "ragged", "spec", "prefix", "generate", "quant")
 
 
 def kernel_rows(res):
@@ -5930,6 +6571,39 @@ def kernel_rows(res):
                 replaces="paddle_tpu/ops/pallas/_adamw_kernel.py:114",
                 launches=count.get("adamw_kernel_launches"),
                 **_row_numbers(numbers)))
+    q = res.get("quant")
+    if q:
+        # K7, which replaces XLA's fusion of the dequantization into the
+        # dot (no Pallas kernel): its decode form at LLaMA-2-7B's gate/up
+        # shape and 8 rows (launches from the int8 and int4 serve runs),
+        # its tile form at a prefill chunk's 256 rows, its A8 arm
+        # (launches from the PTQ drive)
+        src = "paddle_tpu_torch/ops/csrc/weight_only_gemm.cu"
+        err = q["k7"]["max_abs_err"]
+        shape, m = K7_ROW
+        tshape, tm = K7_TILE_ROW
+        for name, key, launches in (
+                ("weight_only_gemm_int8_decode", f"{shape} int8 M {m}",
+                 q["int8"]["k7_counts"]["decode_launches"]),
+                ("weight_only_gemm_int4_decode", f"{shape} int4 M {m}",
+                 q["int4"]["k7_counts"]["decode_launches"]),
+                ("weight_only_gemm_int8_tile", f"{tshape} int8 M {tm}",
+                 q["int8"]["k7_counts"]["tile_launches"])):
+            rows.append(dict(
+                name=name, route="cuda", source=src,
+                replaces="paddle_tpu/nn/quant/__init__.py:140 (XLA fusion, "
+                         "no Pallas kernel)",
+                launches=launches, max_abs_err=err,
+                **{k: q["k7_timed"][key][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}))
+        rows.append(dict(
+            name="weight_only_gemm_a8", route="cuda", source=src,
+            replaces="paddle_tpu/quantization/ptq.py:60 (XLA fusion, no "
+                     "Pallas kernel)",
+            launches=q["ptq"]["counts"]["a8_launches"], max_abs_err=0.0,
+            **{k: q["k7_timed"]["a8"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
     return rows
 
 

@@ -4,6 +4,15 @@
 keeps ``[out, in]``. Every other tensor (embeddings, norm weights and
 biases, Linear biases) has the same layout in both. The model is told
 apart by its config (:class:`~.gpt.GPTConfig` or the LLaMA one).
+
+A model converted to weight-only int8/int4 (``convert_to_weight_only``
+in either package) carries each converted Linear as ``qweight`` and
+``weight_scale`` in place of ``weight``; they cross with the same
+transpose: the JAX package's codes ``[k, n]`` (int4 ``[k/2, n]``) and
+grouped scales ``[k/g, n]`` are the port's ``[n, k]`` (``[n, k/2]``) and
+``[n, k/g]``; per-channel scales ``[n]`` are the same in both. The codes
+stay int8. Load them into a port model converted with the same
+``algo`` and ``group_size``.
 """
 from __future__ import annotations
 
@@ -77,6 +86,40 @@ def _is_linear(key):
         key.endswith(name + ".weight") for name in _LINEARS)
 
 
+def _with_codes(want, have):
+    """``want`` with each Linear weight that ``have`` holds as weight-only
+    codes (``qweight`` and ``weight_scale`` in place of ``weight``) under
+    those two keys, as ``("codes", k, n)`` and ``("scale", k, n)``
+    specs."""
+    out = {}
+    for key, shape in want.items():
+        base = key[:-len("weight")]
+        if _is_linear(key) and key not in have and base + "qweight" in have:
+            out[base + "qweight"] = ("codes", *shape)
+            out[base + "weight_scale"] = ("scale", *shape)
+        else:
+            out[key] = shape
+    return out
+
+
+def _fits(spec, shape):
+    """Whether ``shape`` (JAX layout) is what ``spec`` allows: a shape, or
+    codes ``[k, n]`` / ``[k/2, n]``, or scales ``[n]`` / ``[k/g, n]``."""
+    if not isinstance(spec[0], str):
+        return tuple(shape) == tuple(spec)
+    kind, k, n = spec
+    if kind == "codes":
+        return tuple(shape) in ((k, n), (k // 2, n))
+    return tuple(shape) == (n,) or (len(shape) == 2 and shape[1] == n
+                                    and 0 < shape[0] and k % shape[0] == 0)
+
+
+def _transposed(key, ndim):
+    """Whether ``key``'s tensor changes layout between the packages."""
+    return _is_linear(key) or key.endswith(".qweight") or (
+        key.endswith(".weight_scale") and ndim == 2)
+
+
 def state_dict_from_paddle_tpu(np_state: dict, cfg) -> dict:
     """Map the JAX model's ``state_dict()`` (as numpy arrays, under its
     own key names) to a ``state_dict`` for the port's
@@ -85,7 +128,7 @@ def state_dict_from_paddle_tpu(np_state: dict, cfg) -> dict:
 
     Raises ``KeyError`` on a missing or unexpected key and
     ``ValueError`` on a shape that does not match ``cfg``."""
-    want = _expected_shapes(cfg)
+    want = _with_codes(_expected_shapes(cfg), set(np_state))
     missing = sorted(set(want) - set(np_state))
     extra = sorted(set(np_state) - set(want))
     if missing or extra:
@@ -94,11 +137,11 @@ def state_dict_from_paddle_tpu(np_state: dict, cfg) -> dict:
     out = {}
     for key, shape in want.items():
         arr = np.asarray(np_state[key])
-        if arr.shape != shape:
+        if not _fits(shape, arr.shape):
             raise ValueError(f"{key}: shape {arr.shape}, expected {shape} "
                              "for this config")
         t = torch.tensor(arr)
-        out[key] = t.T.contiguous() if _is_linear(key) else t
+        out[key] = t.T.contiguous() if _transposed(key, t.dim()) else t
     if cfg.tie_word_embeddings:
         out["lm_head.weight"] = out[_embedding_key(cfg)]
     return out
@@ -110,19 +153,21 @@ def state_dict_to_paddle_tpu(state_dict: dict, cfg) -> dict:
     and layouts (bf16 weights widen exactly). Raises ``KeyError`` on a
     missing or unexpected key and ``ValueError`` on a shape that does not
     match ``cfg``."""
-    want = _expected_shapes(cfg)
     have = set(state_dict)
     if cfg.tie_word_embeddings:
         have.discard("lm_head.weight")  # the embedding, shared
+    want = _with_codes(_expected_shapes(cfg), have)
     missing, extra = sorted(set(want) - have), sorted(have - set(want))
     if missing or extra:
         raise KeyError(f"state_dict mismatch: missing {missing}, "
                        f"unexpected {extra}")
     out = {}
     for key, shape in want.items():
-        t = state_dict[key].detach().float().cpu()
-        arr = (t.T if _is_linear(key) else t).contiguous().numpy()
-        if arr.shape != shape:
+        t = state_dict[key].detach().cpu()
+        if t.dtype != torch.int8:    # codes stay int8
+            t = t.float()
+        arr = (t.T if _transposed(key, t.dim()) else t).contiguous().numpy()
+        if not _fits(shape, arr.shape):
             raise ValueError(f"{key}: shape {arr.shape} in the JAX layout, "
                              f"expected {shape} for this config")
         out[key] = arr

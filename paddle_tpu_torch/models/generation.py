@@ -57,6 +57,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..ops import weight_only_kernel as _wo
 from ..ops.fa_kernel import _mul32
 from ..serving import attention as _attention
 from ..serving.attention import paged_plan, planned_attention, quantize_q8
@@ -292,14 +293,18 @@ def _sample_token(logits, do_sample, temperature, top_k, top_p, seed=None,
 
 # -- CUDA graphs -------------------------------------------------------------
 
+# the kernels' launch counters a replay adds to (K5, K7)
+_KERNEL_STATS = (_attention.stats, _wo.stats)
+
+
 class _Graph:
     """``body`` (no arguments, reads and writes static buffers) captured
     as a CUDA graph after one warm-up run on a side stream. K5's counters
-    move by the capture's change at every replay; the warm-up and the
-    capture count nothing."""
+    (and K7's, ``wo_launches``) move by the capture's change at every
+    replay; the warm-up and the capture count nothing."""
 
     def __init__(self, body, device, pool):
-        saved = dict(_attention.stats)
+        saved = [dict(st) for st in _KERNEL_STATS]
         saved_plain = stats["plain_calls"]
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -307,20 +312,25 @@ class _Graph:
         with torch.cuda.stream(side):
             body()
         cur.wait_stream(side)
-        before = dict(_attention.stats)
+        before = [dict(st) for st in _KERNEL_STATS]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool):
             body()
-        self.launches = {k: _attention.stats[k] - before[k] for k in before}
+        self.launches, self.wo_launches = (
+            {k: st[k] - b[k] for k in b}
+            for st, b in zip(_KERNEL_STATS, before))
         self.plain = stats["plain_calls"] - saved_plain
-        _attention.stats.update(saved)
+        for st, old in zip(_KERNEL_STATS, saved):
+            st.update(old)
         stats["plain_calls"] = saved_plain
         stats["graphs_captured"] += 1
 
     def replay(self):
         self.graph.replay()
-        for k, n in self.launches.items():
-            _attention.stats[k] += n
+        for st, launches in zip(_KERNEL_STATS,
+                                (self.launches, self.wo_launches)):
+            for k, n in launches.items():
+                st[k] += n
         stats["plain_calls"] += self.plain
         stats["graph_replays"] += 1
 
@@ -388,7 +398,12 @@ def _draft_uid(draft):
 
 
 def _param_ptrs(model):
-    return tuple(p.data_ptr() for p in model.parameters())
+    """The addresses a program's graphs read the weights at: every
+    parameter's and buffer's (a weight-only model's codes and scales are
+    buffers), so a program captured before a conversion never replays
+    after it."""
+    return tuple(t.data_ptr() for t in (*model.parameters(),
+                                        *model.buffers()))
 
 
 class _EvalMode:

@@ -8,7 +8,8 @@ from .clip_grad import (ClipGradByGlobalNorm, ClipGradByNorm,
                         ClipGradByValue, clip_grad_norm_)
 from .common import Dropout, Linear
 from .norm import LayerNorm, RMSNorm
+from . import quant
 
 __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
            "Dropout", "LayerNorm", "Linear", "RMSNorm", "clip_grad_norm_",
-           "functional"]
+           "functional", "quant"]

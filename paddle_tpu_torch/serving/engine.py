@@ -78,12 +78,20 @@ draft's own pool has no prefix cache. Page migration between engines:
 ``export_prefix`` / ``import_prefix`` / ``drop_prefix`` move cached
 chains, all on :mod:`.pagewire`'s payloads.
 
-Arguments of the JAX engine outside this slice (weight quantization,
-chaos, draft distillation, tensor parallelism) raise
-``NotImplementedError``. ``ragged=``, ``prefix_cache=`` and
-``host_pool=`` are read as given: the JAX package's
-``PADDLE_TPU_SERVING_RAGGED``, ``PADDLE_TPU_SERVING_PREFIX_CACHE`` and
-host-pool knobs are not read.
+Weight-only quantization (``weight_quant="int8"`` or ``"int4"``): the
+target's ``Linear`` layers but ``lm_head`` become
+:class:`~..nn.quant.WeightOnlyLinear` before any step class is captured,
+so every step (bucketed, ragged, speculative verify, prefix-cached) runs
+its q/k/v/o and MLP products through K7 (``ops/csrc/
+weight_only_gemm.cu``); the draft model is not converted. Its launches
+are counted per replay beside K5's.
+
+Arguments of the JAX engine outside this slice (chaos, draft
+distillation, tensor parallelism) raise ``NotImplementedError``.
+``ragged=``, ``prefix_cache=``, ``host_pool=`` and ``weight_quant=`` are
+read as given: the JAX package's ``PADDLE_TPU_SERVING_RAGGED``,
+``PADDLE_TPU_SERVING_PREFIX_CACHE``, ``PADDLE_TPU_SERVING_WEIGHT_QUANT``
+and host-pool knobs are not read.
 """
 from __future__ import annotations
 
@@ -95,6 +103,8 @@ import torch
 
 from ..device import resolve_device
 from ..nn.functional import fused_rotary_position_embedding
+from ..nn.quant import convert_to_weight_only
+from ..ops import weight_only_kernel as _wo
 from . import attention as _attention
 from .attention import paged_plan, planned_attention, ragged_plan
 from .kv_cache import SCRATCH_PAGE, OutOfPages, PagedKVCache
@@ -122,6 +132,8 @@ _INPUTS = {"ids": (np.int32, 0), "positions": (np.int32, 0),
            "top_k": (np.int32, 0), "top_p": (np.float32, 1.0),
            "seeds": (np.int32, 0), "steps": (np.int32, 0)}
 _SAMPLING = ("do_sample", "temperature", "top_k", "top_p", "seeds", "steps")
+# the kernels' launch counters a CUDA graph's replay adds to (K5, K7)
+_KERNEL_STATS = (_attention.stats, _wo.stats)
 
 
 class _StepClass:
@@ -164,8 +176,9 @@ class _StepClass:
         Warm-up (on a side stream, as CUDA graphs need) and capture run
         on padding inputs, which touch only the scratch page, and count
         no kernel launch: ``launches`` is the capture's change of K5's
-        counters, added back at every replay."""
-        saved = dict(_attention.stats)
+        counters and ``wo_launches`` of K7's, added back at every
+        replay."""
+        saved = [dict(st) for st in _KERNEL_STATS]
         self._dev = {name: torch.full(t.shape, _INPUTS[name][1],
                                       dtype=t.dtype, device=device)
                      for name, t in self._host.items()}
@@ -175,12 +188,15 @@ class _StepClass:
         with torch.cuda.stream(side):
             body(self._dev)
         cur.wait_stream(side)
-        before = dict(_attention.stats)
+        before = [dict(st) for st in _KERNEL_STATS]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool):
             self._out = body(self._dev)
-        self.launches = {k: _attention.stats[k] - before[k] for k in before}
-        _attention.stats.update(saved)
+        self.launches, self.wo_launches = (
+            {k: st[k] - b[k] for k in b}
+            for st, b in zip(_KERNEL_STATS, before))
+        for st, old in zip(_KERNEL_STATS, saved):
+            st.update(old)
         self.graph = graph
 
     def replay(self):
@@ -191,8 +207,10 @@ class _StepClass:
             self._copied = torch.cuda.Event()
         self._copied.record()
         self.graph.replay()
-        for k, n in self.launches.items():
-            _attention.stats[k] += n
+        for st, launches in zip(_KERNEL_STATS,
+                                (self.launches, self.wo_launches)):
+            for k, n in launches.items():
+                st[k] += n
         return self._out
 
 
@@ -230,10 +248,24 @@ class ServingEngine:
                  weight_quant=None, chaos=None, host_pool=None,
                  distill=None, ragged=None, mesh=None, tp_degree=None):
         _refuse_unported(
-            weight_quant=weight_quant, chaos=chaos is not None,
-            distill=distill is not None, mesh=mesh is not None,
-            tp_degree=(tp_degree or 1) > 1)
+            chaos=chaos is not None, distill=distill is not None,
+            mesh=mesh is not None, tp_degree=(tp_degree or 1) > 1)
         cfg, core = self._validate_causal_lm(model)
+        if weight_quant not in (None, "int8", "int4"):
+            raise ValueError(
+                f"weight_quant must be 'int8', 'int4' or None, got "
+                f"{weight_quant!r}")
+        self.weight_quant = weight_quant
+        if weight_quant:
+            # decode is bound by the weights' bytes: int8/int4 codes halve
+            # or quarter them; lm_head stays in full precision (the usual
+            # recipe, as the JAX engine). The codes and scales are buffers
+            # that every step class's CUDA graph reads by address, so the
+            # swap happens before any class is captured. A converted
+            # model is left as it is (only exact Linear layers swap).
+            convert_to_weight_only(model,
+                                   algo=f"weight_only_{weight_quant}",
+                                   exclude=("lm_head",))
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev != self.device:

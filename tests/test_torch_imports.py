@@ -21,7 +21,7 @@ from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                      LlamaPretrainingCriterion)
 from paddle_tpu_torch.nn.functional import (dropout,
                                             scaled_dot_product_attention)
-from paddle_tpu_torch.ops import adamw_kernel, fa_kernel
+from paddle_tpu_torch.ops import adamw_kernel, fa_kernel, weight_only_kernel
 from paddle_tpu_torch.ops.flash_attention import (
     _attention_ref, _attention_ref_hash_dropout, dense_attention,
     flash_attention_bshd, flash_core_lse)
@@ -74,7 +74,11 @@ def test_the_check_matches_module_names_exactly():
                 "nn/clip_grad.py", "regularizer.py", "amp/__init__.py",
                 "amp/state.py", "distributed/fleet/recompute.py",
                 "io/__init__.py", "metric/__init__.py", "hapi/callbacks.py",
-                "framework/io_save.py", "models/generation.py"):
+                "framework/io_save.py", "models/generation.py",
+                "ops/weight_only_kernel.py", "nn/quant/__init__.py",
+                "quantization/__init__.py", "quantization/config.py",
+                "quantization/observers.py", "quantization/quanters.py",
+                "quantization/qat.py", "quantization/ptq.py"):
         assert f"paddle_tpu_torch/{mod}" in names, mod
 
 
@@ -146,6 +150,14 @@ def test_kernel_wrappers_refuse_tensors_off_a_card():
         adamw_kernel.adamw_update([p], [_meta(10)], [state], lr=1e-3,
                                   step=1, b1=0.9, b2=0.999, eps=1e-8,
                                   wd=0.0, decoupled=True)
+    codes = torch.empty(16, 64, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="K7 needs CUDA"):
+        weight_only_kernel.weight_only_matmul(_meta(2, 64), codes,
+                                              _meta(16))
+    with pytest.raises(ValueError, match="K7 needs CUDA"):
+        weight_only_kernel.int8_matmul(
+            torch.empty(2, 64, dtype=torch.int8, device="meta"), codes,
+            _meta(16), 0.1, torch.float32)
 
 
 @pytest.mark.parametrize("kwargs,missing", [

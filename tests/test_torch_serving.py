@@ -439,12 +439,17 @@ def test_unported_engine_arguments_raise(arg):
     """The arguments outside the port raise NotImplementedError; the
     speculative ones are ported and refuse what is wrong (a draft that
     is no causal LM, a k without a draft); the prefix cache and its host
-    tier are ported and accepted."""
+    tier and weight-only quantization are ported and accepted."""
     _, tm = _transplanted()
     if "prefix_cache" in arg:
         eng = ServingEngine(tm, num_pages=8, device="cpu", **arg)
         assert eng.cache.prefix_cache_enabled
         assert (eng.kvtier is not None) == ("host_pool" in arg)
+        return
+    if "weight_quant" in arg:
+        eng = ServingEngine(tm, num_pages=8, device="cpu", **arg)
+        assert eng.weight_quant == "int8"
+        assert tm._weight_only_converted > 0
         return
     want = (TypeError if "draft_model" in arg else
             ValueError if "speculative_k" in arg else NotImplementedError)
