@@ -9,8 +9,9 @@ Phases, each of which passes or ends the script with a non-zero code:
 1. The card's name and power limit, the torch/CUDA versions, and the
    build of every kernel from the sources in this checkout (one ``nvcc``
    per source, all started together); the HGMMA (wgmma) instructions in
-   the SASS of K1's and K6's forward and of K2's and K3's backward,
-   counted with ``cuobjdump`` (none in any of the four fails).
+   the SASS of K1's and K6's forward, of K2's and K3's backward and of
+   K7's tile form, counted with ``cuobjdump`` (none in any of the five
+   fails, as does any mma.sync (HMMA) in K7's tile form).
 2. ``kernels``: each hand-written kernel (K5 ragged paged attention in
    its split and tile forms, K1-K3 flash attention forward / dq / dk-dv,
    K4 multi-tensor AdamW) against its plain PyTorch version on the card,
@@ -225,14 +226,19 @@ Phases, each of which passes or ends the script with a non-zero code:
 22. ``quant`` (run before ``attn_cases``): K7, the weight-only GEMM, against
    its plain version on the card at the path's (k, n) (LLaMA-2-7B's
    4096->4096, 4096->11008, 11008->4096, Mistral's 4096->1024, GPT-3
-   1.3B's 2048->6144 with its bias, and k 4128, which takes the CUDA-core
-   bf16 decode form) and rows 1, 3, 8, 17, 40, 256, 264 and 4096: int8
+   1.3B's 2048->6144 with its bias, k 4128, which takes the CUDA-core
+   bf16 decode form, and k 4160, whose last int4 decode chunk ends half
+   past k) and rows 1, 3, 8, 17, 40, 256, 264 and 4096: int8
    and int4, per-channel and grouped scales (64 and 128; 24 and 96 at k
-   4128, 24 looking each element's scale up), bf16 (within one bf16
+   4128, 24 looking each element's scale up; 80 at k 4160), bf16 (within one bf16
    rounding of the sum, and of the bias add) and float32 (1e-5 of the
    element plus 1e-4 of the RMS); planted faults (int4 nibbles swapped,
    a group's scale from the next column, the last k column dropped)
-   must fail; the A8 arm bit for bit. Timed beside its plain version,
+   must fail; the A8 arm bit for bit; one-hot rows of x through both
+   forms, int8 and int4, per channel and grouped, must give the columns
+   of ``dequantize()``'s weights bit for bit; a CUDA graph of the tile
+   form (whose tensor map holds x's address) replayed after x's contents
+   change must give the new product. Timed beside its plain version,
    cuBLAS bf16 on the unquantized weight (a yardstick the port never
    calls there) and its bound. A PTQ drive through the A8 arm. Then
    ``ServingEngine(weight_quant="int8")`` and ``"int4"`` over LLaMA-2-7B
@@ -297,17 +303,21 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-# the flash-attention kernels on TMA + wgmma, by the name in their SASS
+# the kernels on wgmma, by the name in their SASS: the flash-attention
+# kernels (TMA + wgmma) and K7's tile form
 WGMMA_KERNELS = {"K1": "fa_fwd_wgmma_kernel", "K2": "fa_bwd_dq_wgmma_kernel",
                  "K3": "fa_bwd_dkv_wgmma_kernel",
-                 "K6": "fa_fwd_stream_wgmma_kernel"}
+                 "K6": "fa_fwd_stream_wgmma_kernel",
+                 "K7 tile": "k7_tile_wgmma_kernel"}
 
 
-def hgmma_counts(lib_path):
-    """{"K1", "K2", "K3", "K6": HGMMA instructions in that kernel (every
-    instantiation, :data:`WGMMA_KERNELS`), "other": HGMMA in the library's
-    other kernels} from ``cuobjdump -sass``, or None where the toolkit has
-    no cuobjdump."""
+def hgmma_counts(lib_paths):
+    """{"K1", "K2", "K3", "K6", "K7 tile": HGMMA instructions in that
+    kernel (every instantiation, :data:`WGMMA_KERNELS`), "other": HGMMA in
+    the libraries' other kernels, "hmma": {key: mma.sync (HMMA)
+    instructions in that kernel}} from ``cuobjdump -sass`` of every
+    library in ``lib_paths``, or None where the toolkit has no
+    cuobjdump."""
     import shutil
     tool = next((str(p) for p in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
@@ -315,14 +325,18 @@ def hgmma_counts(lib_path):
         if os.path.exists(p)), None) or shutil.which("cuobjdump")
     if tool is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     counts = dict.fromkeys((*WGMMA_KERNELS, "other"), 0)
-    for fn in sass.split("Function : ")[1:]:
-        name = fn.splitlines()[0]
-        key = next((k for k, v in WGMMA_KERNELS.items() if v in name),
-                   "other")
-        counts[key] += fn.count("HGMMA")
+    counts["hmma"] = dict.fromkeys(WGMMA_KERNELS, 0)
+    for path in lib_paths:
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        for fn in sass.split("Function : ")[1:]:
+            name = fn.splitlines()[0]
+            key = next((k for k, v in WGMMA_KERNELS.items() if v in name),
+                       "other")
+            counts[key] += fn.count("HGMMA")
+            if key != "other":
+                counts["hmma"][key] += fn.count("HMMA")
     return counts
 
 
@@ -5636,17 +5650,21 @@ K7_SHAPES = (("llama2_7b q/k/v/o", 4096, 4096, False),
              ("llama2_7b down", 11008, 4096, False),
              ("mistral_7b k/v", 4096, 1024, False),
              ("gpt3_1_3b qkv", 2048, 6144, True),
-             ("k % 64 = 32 (bf16 decode on CUDA cores)", 4128, 1024, False))
+             ("k % 64 = 32 (bf16 decode on CUDA cores)", 4128, 1024, False),
+             ("k % 128 = 64 (int4 decode's last chunk half past k)", 4160,
+              1024, False))
+K7_TIMED_SHAPES = K7_SHAPES[:5]       # the main paths' shapes
 # group sizes where the shape's k is not a multiple of 64 or 128 (24: not
-# a multiple of 16 either, so each element looks its scale up)
-K7_GROUP_FOR = {(4128, 64): 24, (4128, 128): 96}
+# a multiple of 16 either, so each element looks its scale up; 80: not a
+# multiple of 32, so the int4 decode form looks each pair's scale up)
+K7_GROUP_FOR = {(4128, 64): 24, (4128, 128): 96, (4160, 128): 80}
 # rows: decode 1 and 8, odd 3 and 17, the verify round's 40, a prefill
 # chunk's 256, a ragged step's 264 and a long prefill's 4096
 K7_MS = (1, 3, 8, 17, 40, 256, 264, 4096)
 K7_F32_MS = (1, 3, 40, 264)
 K7_ARMS = (("weight_only_int8", -1), ("weight_only_int4", -1),
            ("weight_only_int8", 64), ("weight_only_int4", 128))
-K7_TIMED_MS = (1, 8, 40, 256)
+K7_TIMED_MS = (1, 8, 40, 256, 4096)
 K7_ROW = ("llama2_7b gate/up", 8)   # the JSON rows' shape and rows
 K7_TILE_ROW = ("llama2_7b gate/up", 256)
 A8_SX = 3.25                          # an activation absmax (A8 cases)
@@ -5843,6 +5861,119 @@ def k7_work(k, n, m, int4, groups, itemsize, bias):
     return nbytes, 2 * m * n * k
 
 
+def k7_onehot(dev="cuda"):
+    """x of one-hot rows (row i has one 1, at column c_i) turns y into
+    columns c_i of the dequantized weight, exactly: one product 1 * w, the
+    rest +0, summed and rounded to bf16 without error. So y must equal
+    ``dequantize()``'s columns bit for bit, in each form, int8 and int4,
+    per channel and grouped: a conversion that rounds a weight otherwise
+    fails here where the ratio test could pass it. At gate/up (k 4096,
+    every arm) and at k 4160 with int4 groups of 80 (the tile form's
+    per-pair and the int4 decode form's per-element scale lookup, and the
+    decode form's last chunk half past k): the tile form as planned takes
+    every column at once (k rows of x); each token tile (64, 128, 256),
+    unsplit and with K split in 3 (``k7_finish_kernel``), takes 80 columns
+    in two calls of 40 rows that cover every residue mod 64 (each thread
+    and fragment register of a stage) over stages spread across k; the
+    decode form 8 rows a call, 16 calls whose 128 columns cover every
+    residue mod 128 (each lane, byte and nibble position of its chunks),
+    spread over k, and the columns past the last whole chunk of 128.
+    Returns the number of weights compared."""
+    import torch
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+    compared, reached, plan = 0, set(), WK.plan
+
+    def ar(lo, hi):
+        return torch.arange(lo, hi, device=dev)
+
+    try:
+        for k, n, arms in ((4096, 11008, K7_ARMS),
+                           (4160, 1024, (("weight_only_int4", 80),))):
+            calls = [(ar(0, k), None)]
+            calls += [(i % 64 + 64 * ((7 * i) % (k // 64)), (tn, splits))
+                      for tn in WK._TOKEN_TILES for splits in (1, 3)
+                      for i in (ar(0, 40), ar(40, 80))]
+            calls += [(ar(8 * j, 8 * j + 8)
+                       + 128 * ((7 * ar(8 * j, 8 * j + 8)) % (k // 128)),
+                       None) for j in range(16)]
+            calls += [(ar(j, j + 8), None) for j in range(k // 128 * 128,
+                                                          k, 8)]
+            for algo, group in arms:
+                c = k7_case(k, n, 8, algo, group, torch.bfloat16, False, 60,
+                            dev)
+                w = WK.dequantize(c["codes"], c["scale"], c["int4"],
+                                  torch.bfloat16)
+                for sel, force in calls:
+                    x = torch.nn.functional.one_hot(sel, k).to(
+                        torch.bfloat16)
+                    WK.plan = (plan if force is None else
+                               lambda *a, p=(1, *force): p)
+                    form, tn, splits = WK.plan(len(sel), n, k,
+                                               torch.bfloat16)
+                    got = WK.weight_only_matmul_cuda(x, c["codes"],
+                                                     c["scale"],
+                                                     int4=c["int4"])
+                    WK.plan = plan
+                    torch.cuda.synchronize()
+                    want = w[:, sel].t()
+                    what = (f"tile form, token tile {tn}, {splits} split(s)"
+                            if form else "decode form")
+                    if not torch.equal(got, want):
+                        bad = (got != want).nonzero()[0].tolist()
+                        raise AssertionError(
+                            f"K7 one-hot {algo} g{group} k {k} ({what}): "
+                            f"y[{bad[0]}, {bad[1]}] = {got[bad[0], bad[1]]} "
+                            f"against the weight {want[bad[0], bad[1]]}")
+                    compared += want.numel()
+                    reached.add((form, tn if form else 0, splits > 1))
+                del c, w
+    finally:
+        WK.plan = plan
+    missing = {(1, tn, s) for tn in WK._TOKEN_TILES
+               for s in (False, True)} - reached
+    if missing or not any(f == 0 for f, _, _ in reached):
+        raise AssertionError(f"K7 one-hot: forms not reached {missing}")
+    print(f"K7 one-hot rows: both forms give dequantize()'s weights bit for "
+          f"bit ({compared} weights, int8 and int4, per channel and "
+          f"grouped, every token tile split and not, k 4160 in groups of "
+          f"80)", flush=True)
+    return compared
+
+
+def k7_graph_replay(dev="cuda"):
+    """The tile form builds its tensor map of x on the host, with x's
+    address, once a call. A CUDA graph holds that call: replayed after
+    x's contents change (the engine's static buffers), it must give the
+    product of the new x."""
+    import torch
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+    c = k7_case(4096, 11008, 256, "weight_only_int4", 128, torch.bfloat16,
+                False, 61, dev)
+    x = c["x"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        WK.weight_only_matmul_cuda(x, c["codes"], c["scale"], int4=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = WK.weight_only_matmul_cuda(x, c["codes"], c["scale"], int4=True)
+    first = None
+    for seed in (62, 63):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = WK.weight_only_matmul_plain(x, c["codes"], c["scale"],
+                                           int4=True)
+        r = k7_ratio(y, want, None, torch.bfloat16)
+        if not r <= 1.0 or (first is not None and torch.equal(y, first)):
+            raise AssertionError(f"K7 tile form replayed on new x: ratio {r}")
+        first = y.clone()
+    print("K7 tile form: a graph replay after x's contents changed gives "
+          f"the new product (ratio {r:.3f})", flush=True)
+
+
 def k7_checks(dev="cuda"):
     """K7 against its plain version in every arm and form (both dtypes,
     int8 / int4, per-channel and grouped scales, with and without bias,
@@ -5911,6 +6042,8 @@ def k7_checks(dev="cuda"):
             a8.append(dict(m=m, out_dtype=str(out_dtype)))
     print("K7 A8 arm: bit-equal to its plain version at M 1, 3, 8, 40, 264 "
           "(bf16 and float32 out); changed codes rejected", flush=True)
+    k7_onehot(dev)
+    k7_graph_replay(dev)
     return worst, max_err, a8
 
 
@@ -5925,7 +6058,7 @@ def k7_timings(smi, dev="cuda"):
     from paddle_tpu_torch.ops import weight_only_kernel as WK
 
     out = {}
-    for name, k, n, bias in K7_SHAPES[:-1]:
+    for name, k, n, bias in K7_TIMED_SHAPES:
         for algo in ("weight_only_int8", "weight_only_int4"):
             for m in K7_TIMED_MS:
                 c = k7_case(k, n, m, algo, -1, torch.bfloat16, bias, 7, dev)
@@ -6224,7 +6357,8 @@ def main(argv=None):
     build_s = build([A.KERNEL_LIBRARY, *KERNEL_LIBRARIES])
     print(f"kernels built from source in {build_s:.1f} s", flush=True)
     from paddle_tpu_torch.ops import fa_kernel as FK
-    hgmma = hgmma_counts(FK.KERNEL_LIBRARY.path)
+    from paddle_tpu_torch.ops import weight_only_kernel as WK
+    hgmma = hgmma_counts([FK.KERNEL_LIBRARY.path, WK.KERNEL_LIBRARY.path])
     if hgmma is None:
         print("sass: no cuobjdump in the toolkit; HGMMA not counted",
               flush=True)
@@ -6232,11 +6366,14 @@ def main(argv=None):
         print("sass: HGMMA instructions (every arm and head_dim): "
               + ", ".join(f"{hgmma[k]} in {k} ({v})"
                           for k, v in WGMMA_KERNELS.items())
-              + f", {hgmma['other']} in the library's other kernels",
+              + f", {hgmma['other']} in the libraries' other kernels; "
+              f"HMMA (mma.sync) in K7's tile form: {hgmma['hmma']['K7 tile']}",
               flush=True)
         none = [k for k in WGMMA_KERNELS if hgmma[k] == 0]
         if none:
             raise AssertionError(f"no HGMMA in the SASS of {none}")
+        if hgmma["hmma"]["K7 tile"]:
+            raise AssertionError("mma.sync (HMMA) in K7's tile form")
 
     from paddle_tpu_torch.models import GPTConfig, LlamaConfig
     train_cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS,
@@ -6576,7 +6713,8 @@ def kernel_rows(res):
         # K7, which replaces XLA's fusion of the dequantization into the
         # dot (no Pallas kernel): its decode form at LLaMA-2-7B's gate/up
         # shape and 8 rows (launches from the int8 and int4 serve runs),
-        # its tile form at a prefill chunk's 256 rows, its A8 arm
+        # its tile form at a prefill chunk's 256 rows (int8 and int4), its
+        # A8 arm
         # (launches from the PTQ drive)
         src = "paddle_tpu_torch/ops/csrc/weight_only_gemm.cu"
         err = q["k7"]["max_abs_err"]
@@ -6588,7 +6726,9 @@ def kernel_rows(res):
                 ("weight_only_gemm_int4_decode", f"{shape} int4 M {m}",
                  q["int4"]["k7_counts"]["decode_launches"]),
                 ("weight_only_gemm_int8_tile", f"{tshape} int8 M {tm}",
-                 q["int8"]["k7_counts"]["tile_launches"])):
+                 q["int8"]["k7_counts"]["tile_launches"]),
+                ("weight_only_gemm_int4_tile", f"{tshape} int4 M {tm}",
+                 q["int4"]["k7_counts"]["tile_launches"])):
             rows.append(dict(
                 name=name, route="cuda", source=src,
                 replaces="paddle_tpu/nn/quant/__init__.py:140 (XLA fusion, "

@@ -9,7 +9,7 @@
 // fuses nothing of the kind: dequantizing into a bf16 tensor and calling
 // a matmul would move ~5 bytes a weight instead of 1 (int8) or 0.5
 // (int4), slower than the unquantized model. So the dequantization
-// happens here, in registers or shared memory.
+// happens here, in registers.
 //
 //   y[M, N] = x[M, K] . dequant(codes)^T (+ bias)
 //
@@ -27,40 +27,90 @@
 // What bounds it: at decode (M <= 8) bytes. The weights are read once:
 // LLaMA-2-7B's trunk is 6.48 GB in int8 (1.93 ms at 3.35 TB/s) and 3.24
 // GB in int4 (0.97 ms), against 12.95 GB (3.87 ms) in bf16. At prefill
-// (M in the hundreds or thousands) bf16 tensor-core operations. Two
-// forms, picked by the wrapper from M and the dtypes:
+// (M in the hundreds or thousands) bf16 tensor-core operations. The
+// forms, picked by the wrapper's plan() from M and the dtypes (times
+// below: LLaMA-2-7B's gate/up, k 4096 -> n 11008, on an H100 SXM at 700
+// W, from paddle_tpu_torch/tools/k7_ab.py):
 //
-// (a) k7_decode_kernel (CUDA cores; float32 and A8 at any M, bf16 at
-//     M <= 8 where K is not a multiple of 64, MT <= 8 tokens a pass) and
-//     k7_decode_mma_kernel (bf16 at M <= 8, the multiply-adds on the
-//     tensor cores, described above it). A block of 8 warps owns 4 output
-//     rows and MT <= 8 tokens; its warps split K between them (warp w
-//     takes 16-element chunks w*32 + lane, w*32 + lane + 256, ...), so
-//     even N = 1024 (GQA k/v) gives 256 blocks. A lane reads 16 codes a
-//     row (16 bytes int8, 8 int4) with a streaming load that does not
-//     allocate in L1, where x stays: x is read through the read-only
-//     cache, 4 elements a token at a time. Each code becomes a float by
-//     the magic-number trick (byte into a float's mantissa, then one
-//     subtract), is scaled and rounded, and enters MT fused
-//     multiply-adds; A8 sums with dp4a. Lanes then reduce with shuffles,
-//     warps through shared memory in a fixed order, and the epilogue
-//     rounds and adds the bias.
-// (b) k7_tile_kernel (tensor cores; bf16 x at M > 8): 64 x 64 output
-//     tiles, 4 warps of 32 x 32, K in steps of 64 through a two-stage
-//     cp.async ring (x and the raw codes); each step's codes are
-//     dequantized into a bf16 tile in shared memory, then mma.sync
-//     m16n8k16 with float32 accumulation. Where the tiles are too few to
-//     fill the card (the speculative verify's M of 40, a prefill chunk's
-//     256), K is split across blocks into float32 partials that
-//     k7_finish_kernel sums in a fixed order with the epilogue.
-//
-// Neither form uses wgmma, TMA or a persistent schedule: a first kernel,
-// right and simple.
+// (a) k7_decode_kernel (CUDA cores): float32 x and A8 at any M, bf16 at
+//     M <= 8 where K is not a multiple of 64, MT <= 8 tokens a pass. A
+//     block of 8 warps owns 4 output rows and MT tokens; its warps split
+//     K (warp w takes 16-element chunks w*32 + lane, w*32 + lane + 256,
+//     ...), so even N = 1024 (GQA k/v) gives 256 blocks. A lane reads 16
+//     codes a row with a streaming load that does not allocate in L1,
+//     where x stays. Each code becomes a float by the magic-number trick
+//     (byte into a float's mantissa, then one subtract), is scaled and
+//     rounded, and enters MT fused multiply-adds; A8 sums with dp4a.
+//     Lanes reduce with shuffles, warps through shared memory in a fixed
+//     order, and the epilogue rounds and adds the bias.
+// (a') k7_decode_mma_kernel (bf16, int8 codes, M <= 8): the same
+//     streaming with the multiply-adds on the tensor cores (described
+//     above it). Bound by bytes: ~58 % of its byte bound, faster than
+//     cuBLAS on the unquantized bf16 weight (~0.023 against ~0.034 ms).
+// (a'') k7_decode_int4_kernel (bf16, int4 codes, M <= 8). The int4 arm of
+//     (a') was bound by its conversion, not by bytes: it read ~0.025 ms,
+//     ~0.009 with the conversion patched out, and no faster with x read
+//     from L1 (so not the x re-reads from L2) or with 16-byte loads (so
+//     not the bytes in flight). Now a lane loads 16 bytes of codes (32
+//     nibbles) a row, and a byte's two nibbles become one bf16x2 A
+//     register in a PRMT, a LOP3 and two HFMA2 (pair4: exact, the one
+//     rounding the scale's multiply), so ~0.015 ms, faster than int8.
+//     Left: the loop's latency (three blocks an SM, one chunk a warp in
+//     flight; more rows a warp or deeper buffering read no faster).
+// (b) k7_tile_wgmma_kernel (bf16 x, M > 8). The first tile form
+//     (mma.sync over 64 x 64 tiles, each step's codes dequantized into a
+//     bf16 tile in shared memory between barriers) was bound by its
+//     products and its dequantization, done once a 64-row tile of x: ~4x
+//     cuBLAS at a 256-row prefill chunk. Now "swap AB" on wgmma: the
+//     block's 128 weight rows are wgmma's M (64 a consumer warpgroup),
+//     the tokens its N (a token tile of 64, 128 or 256: a 256-row chunk
+//     is one tile, so each weight is dequantized once a call). A
+//     producer warp keeps a 4-stage mbarrier ring full by TMA: x [TN][64]
+//     (128-byte swizzle, K-major B operand; rows past M come in as
+//     zeros) and the codes [128][64 bytes int8, 32 int4] (64/32-byte
+//     swizzle). Each consumer thread turns its rows' codes into the A
+//     fragments in registers (wgmma's RS form: a dequantized weight
+//     never goes through shared memory; the int4 pair a register is one
+//     byte's two nibbles), step s + 1's while step s's wgmma runs. Where
+//     the blocks would leave SMs idle, K is split across blocks into
+//     float32 partials that k7_finish_kernel sums in split order with
+//     the epilogue; plan() picks the token tile and the split from a
+//     cost model fitted to the kernel's times (k7_ab.py --sweep, --fit).
+//     ~0.057 ms at M 256 (~3.2x faster than the first form, ~1.5x
+//     cuBLAS), ~0.62 at M 4096 (~1.2x cuBLAS). What bounds it, from the
+//     K7_PROBE builds (k7_ab.py --probe, int8): at M 40 the ring of loads
+//     (0.025 of 0.035 ms with no dequantization and no products; x
+//     loaded once saves ~2 %, the split partials ~6 %): one block an SM
+//     streams ~16 KB a stage, plus a fixed cost a wave. At M 256 the 86
+//     blocks leave 46 SMs idle (a split fills them, its partials cost
+//     more) and the A build is ~20 %. At M 4096 the A build (~19 %: each
+//     weight is dequantized once a 256-token tile) and the products
+//     (0.50 ms without the A build, ~75 % of the bf16 peak); x's L2
+//     re-reads cost ~3 %. Left: more bytes in flight an SM at small M,
+//     and fewer A builds at large M.
+#include <cuda.h>  // CUtensorMap (types only: no driver library is linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
+
+// Probes: a build with K7_PROBE defined as n (paddle_tpu_torch/tools/
+// k7_ab.py --probe builds a file that defines it and includes this one)
+// drops one part of a form's work, so its values are wrong and only its
+// time is read. 0, the shipped build, drops nothing.
+//   1 the tile form's A fragments made of the scales alone (no codes read
+//     from shared memory, no conversion): what the dequantization costs
+//   2 the int4 decode form's conversion
+//   3 the tile form's consumers only wait for each stage and free it (no
+//     dequantization, no products): what the ring of loads alone takes
+//   4 the tile form's x loaded in the ring's first round only, the later
+//     stages computing on stale x: what x's re-reads from L2 cost
+//   5 the split tile form's partials neither written nor summed
+#ifndef K7_PROBE
+#define K7_PROBE 0
+#endif
 
 namespace {
 
@@ -72,6 +122,15 @@ constexpr int kWarps = 8;             // decode form: warps a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 4;              // decode form: output rows a block
 constexpr int kChunk = 16;            // k elements a lane takes at a time
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// mbarriers, TMA, wgmma and the host's tensor maps, shared with the
+// flash-attention kernels
+#include "sm90.cuh"
 
 struct Args {
   const void* x;        // [M, K] float32, bf16 or (A8) int8
@@ -328,7 +387,52 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// (a') the decode form in bf16 (M <= 8, K a multiple of 64): the same
+__device__ __forceinline__ uint32_t bf2_fma(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+constexpr uint32_t kBf2NegOne = 0xBF80BF80u, kBf2NegZero = 0x80008000u;
+
+// Two codes as two bf16 weights (low half k, high half k + 1), each code *
+// scale rounded once, as dequantize() rounds it. Every step before the
+// multiply is exact: the code is built as a bf16 integer 128 + m (the
+// magic exponent 2^7, m in the 7-bit mantissa) less a bf16 integer, and
+// a code of at most 8 bits times a bf16 scale fits float32's product, so
+// the one rounding is the multiply's (fma with -0).
+// int8: p holds code k in bits 0-7 and code k + 1 in bits 16-23; a code c
+// = m - 128 s (m its low 7 bits, s its sign bit) is (128 + m) - (128 +
+// 128 s), the second term 0x4300 or 0x4380.
+__device__ __forceinline__ uint32_t pair8(uint32_t p, uint32_t s2) {
+  const uint32_t mag = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t off = (p & 0x00800080u) | 0x43004300u;
+  return bf2_fma(bf2_fma(off, kBf2NegOne, mag), s2, kBf2NegZero);
+}
+// int4: p holds nibble k in bits 0-3 and nibble k + 1 in bits 16-19; the
+// nibble with its sign bit flipped is c + 8, so the half is 136 + c.
+__device__ __forceinline__ uint32_t pair4(uint32_t p, uint32_t s2) {
+  const uint32_t v = (p & 0x000F000Fu) ^ 0x43084308u;
+  return bf2_fma(bf2_fma(0x43084308u, kBf2NegOne, v), s2, kBf2NegZero);
+}
+// The bf16x2 scales of codes k and k + 1 of a row (each rounded to bf16),
+// 0 past the last row.
+__device__ __forceinline__ uint32_t scale2(const Args& a, int row, int k) {
+  if (row >= a.N) return 0u;
+  const float* s = a.scale + static_cast<long long>(row) * a.groups;
+  const float lo = __ldg(s + k / a.group);
+  const float hi = a.group % 2 ? __ldg(s + (k + 1) / a.group) : lo;
+  return pack_bf16(lo, hi);
+}
+// Byte j of w in byte 0 and byte j of w >> 4 in byte 2: the byte's low
+// nibble in bits 0-3, its high nibble in bits 16-19, as pair4 takes them.
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w4,
+                                                int j) {
+  return __byte_perm(w, w4, j | (4 + j) << 8);
+}
+
+// (a') the decode form in bf16 over int8 codes (M <= 8, K a multiple of
+// 64): the same
 // weight streaming, with the multiply-adds on the tensor cores instead
 // of the CUDA cores ("swap AB": the 16 output rows of a warp are the A
 // operand of mma.sync m16n8k16, the 8 tokens of x its B operand). The
@@ -341,12 +445,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 // warp (double-buffering the registers for four cost occupancy and
 // time); the CUDA cores only dequantize (about 3.5 operations a
 // weight).
-template <bool W4>
 __device__ __forceinline__ void dequant_pairs(uint32_t (&w)[8],
                                               uint32_t (&q)[4],
                                               const Args& a, int row,
                                               int k0) {
-  bias_codes<W4>(q, q);
+  bias_codes<false>(q, q);
   const bool one = a.group % kChunk == 0;
   const float s0 = scale_at<true>(a, row, k0);
 #pragma unroll
@@ -356,7 +459,7 @@ __device__ __forceinline__ void dequant_pairs(uint32_t (&w)[8],
     for (int e = 0; e < 2; ++e) {
       const int i = 2 * j + e;
       const float sc = one ? s0 : scale_at<true>(a, row, k0 + i);
-      v[e] = __fmul_rn(code_at<W4>(q, i), sc);
+      v[e] = __fmul_rn(code_at<false>(q, i), sc);
     }
     const __nv_bfloat162 p = __floats2bfloat162_rn(v[0], v[1]);
     w[j] = *reinterpret_cast<const uint32_t*>(&p);
@@ -374,7 +477,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool W4>
 __global__ void __launch_bounds__(kThreads)
     k7_decode_mma_kernel(const Args a) {
   constexpr int kSpan = 64;  // k a warp's chunk covers (4 mma k-steps)
@@ -392,8 +494,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < 2; ++u) {   // both chunks' loads first
       const int cu = min(ch + u * kWarps, nch - 1);
       const int k0 = cu * kSpan + q * kChunk;
-      load_codes<W4>(qa[u], a, n0 + g, k0);
-      load_codes<W4>(qb[u], a, n0 + g + 8, k0);
+      load_codes<false>(qa[u], a, n0 + g, k0);
+      load_codes<false>(qb[u], a, n0 + g + 8, k0);
       const uint4* xp = reinterpret_cast<const uint4*>(xrow + k0);
       const uint4 x0 = __ldg(xp), x1 = __ldg(xp + 1);
       xw[u][0] = x0.x; xw[u][1] = x0.y; xw[u][2] = x0.z; xw[u][3] = x0.w;
@@ -404,8 +506,8 @@ __global__ void __launch_bounds__(kThreads)
       if (ch + u * kWarps >= nch) break;
       const int k0 = (ch + u * kWarps) * kSpan + q * kChunk;
       uint32_t wa[8], wb[8];
-      dequant_pairs<W4>(wa, qa[u], a, n0 + g, k0);
-      dequant_pairs<W4>(wb, qb[u], a, n0 + g + 8, k0);
+      dequant_pairs(wa, qa[u], a, n0 + g, k0);
+      dequant_pairs(wb, qb[u], a, n0 + g + 8, k0);
 #pragma unroll
       for (int st = 0; st < 4; ++st) {
         const uint32_t af[4] = {wa[2 * st], wb[2 * st], wa[2 * st + 1],
@@ -431,153 +533,431 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The 16 weight pairs of a lane's 32 k of one row (byte j of the 16 bytes
+// q: pair j), k0 the first k; srow the row's scale under per-channel scales.
+__device__ __forceinline__ void dequant16(uint32_t (&w)[16], const uint4& q,
+                                          const Args& a, int row, int k0,
+                                          bool one, uint32_t srow) {
+  uint32_t s[16];
+  if (one) {
+    const uint32_t s0 = a.groups == 1 ? srow : scale2(a, row, k0);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) s[j] = s0;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) s[j] = scale2(a, row, k0 + 2 * j);
+  }
+  const uint32_t v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t hi = v[i] >> 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#if K7_PROBE == 2
+      w[4 * i + j] = nibble_pair(v[i], hi, j) ^ s[4 * i + j];
+#else
+      w[4 * i + j] = pair4(nibble_pair(v[i], hi, j), s[4 * i + j]);
+#endif
+  }
+}
+
+// (a'') the decode form's int4 arm (bf16, M <= 8, K a multiple of 64): as
+// (a'), but a lane loads 16 bytes of a row's codes (32 nibbles, k = base +
+// 32 q + 0..31) and the codes become weights in bf16x2 (pair4), a byte's
+// two nibbles one A register of mma.sync (byte j is the virtual k pair of
+// step j / 2: even j 2q, 2q + 1, odd j 2q + 8, 2q + 9; x's 32-bit word j
+// the same pair of token g). A warp's chunk spans 128 k, one chunk a loop.
+// The loop is bound by latency: three blocks an SM (at most 85 registers)
+// ran faster than two; a rolling double buffer of chunks, two chunks in
+// flight, or 32 or 64 rows a warp sharing x's fragments, no faster.
+struct Chunk4 {
+  uint4 qa, qb;       // rows g and g + 8: 16 bytes of codes each
+  uint32_t xw[16];    // token g's x at the same 32 k
+};
+
+__device__ __forceinline__ void load_chunk4(Chunk4& c, const Args& a,
+                                            const bf16* xrow, int n0, int g,
+                                            int k0, bool ok) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const long long pitch = a.K / 2;
+  c.qa = ok && n0 + g < a.N ? ld_stream16(a.codes + (n0 + g) * pitch + k0 / 2)
+                            : zero;
+  c.qb = ok && n0 + g + 8 < a.N
+             ? ld_stream16(a.codes + (n0 + g + 8) * pitch + k0 / 2)
+             : zero;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 v =
+        ok ? __ldg(reinterpret_cast<const uint4*>(xrow + k0) + i) : zero;
+    c.xw[4 * i] = v.x;
+    c.xw[4 * i + 1] = v.y;
+    c.xw[4 * i + 2] = v.z;
+    c.xw[4 * i + 3] = v.w;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+    k7_decode_int4_kernel(const Args a) {
+  constexpr int kSpan = 128;
+  __shared__ float red[kWarps][16][8];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int n0 = blockIdx.x * 16;
+  const bf16* xrow = static_cast<const bf16*>(a.x) +
+                     static_cast<long long>(min(g, a.M - 1)) * a.K;
+  const int nch = (a.K + kSpan - 1) / kSpan;
+  const bool one = a.group % 32 == 0;
+  // per-channel scales: one a row, read once
+  const uint32_t sa = a.groups == 1 ? scale2(a, n0 + g, 0) : 0u;
+  const uint32_t sb = a.groups == 1 ? scale2(a, n0 + g + 8, 0) : 0u;
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  auto k_of = [&](int ch) { return ch * kSpan + q * 32; };
+  auto compute = [&](const Chunk4& ck, int ch) {
+    // a lane past K (K % 128 == 64) has zero codes and x; its scales are
+    // read at the last k
+    const int k0 = min(k_of(ch), a.K - 32);
+    uint32_t wa[16], wb[16];
+    dequant16(wa, ck.qa, a, n0 + g, k0, one, sa);
+    dequant16(wb, ck.qb, a, n0 + g + 8, k0, one, sb);
+#pragma unroll
+    for (int st = 0; st < 8; ++st) {
+      const uint32_t af[4] = {wa[2 * st], wb[2 * st], wa[2 * st + 1],
+                              wb[2 * st + 1]};
+      mma16816(c, af, ck.xw[2 * st], ck.xw[2 * st + 1]);
+    }
+  };
+  for (int ch = warp; ch < nch; ch += kWarps) {
+    Chunk4 ck;
+    load_chunk4(ck, a, xrow, n0, g, k_of(ch), k_of(ch) < a.K);
+    compute(ck, ch);
+  }
+  red[warp][g][2 * q] = c[0];
+  red[warp][g][2 * q + 1] = c[1];
+  red[warp][g + 8][2 * q] = c[2];
+  red[warp][g + 8][2 * q + 1] = c[3];
+  __syncthreads();
+  if (threadIdx.x < 16 * 8) {
+    const int r = threadIdx.x >> 3, m = threadIdx.x & 7;
+    if (n0 + r < a.N && m < a.M) {
+      float v = red[0][r][m];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += red[w][r][m];
+      store_out<kBF16>(a, m, n0 + r, v);
+    }
+  }
+}
+
 // -- (b) the tile form --------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kBK = 64;
-constexpr int kTileThreads = 128;
-constexpr int kLD = kBK + 8;  // bf16 row pitch of the x and weight tiles:
-                              // fragment loads fall on distinct banks
+constexpr int kTRows = 128;   // weight rows a block: two warpgroups of 64
+constexpr int kTK = 64;       // k a stage (four wgmma k-steps)
+constexpr int kTStages = 4;   // the ring's stages
 constexpr int kKAlign = 32;   // every form takes K a multiple of this
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+template <bool W4, int TN>
+struct TileShape {
+  static constexpr int code_row = W4 ? kTK / 2 : kTK;  // bytes a row a stage
+  static constexpr int x_bytes = TN * kTK * 2;  // [TN][64] bf16, 128B swizzle
+  static constexpr int c_bytes = kTRows * code_row;
+  static constexpr int stage = x_bytes + c_bytes;  // a multiple of 1024
+  // the stages, 2 mbarriers a stage, + 1024 to align
+  static constexpr int smem = kTStages * stage + 2 * kTStages * 8 + 1024;
+};
+
+// d (64 x N, float32) += A (64 x 16, bf16, registers) * B (16 x N, bf16,
+// shared memory, K-major: the transpose bit clear).
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<64>(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t ld_smem32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<128>(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<256>(float (&d)[128],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Keep the compiler from reusing A registers that an issued wgmma may still
+// read: they stay live until this point, after the wait.
+__device__ __forceinline__ void keep_regs(const uint32_t (&x)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" ::"r"(x[i]) : "memory");
+}
+
+// 16 bytes of shared memory at a shared-window address (an explicit
+// ld.shared: a pointer realigned by integer arithmetic reads through the
+// slower generic path otherwise); volatile, so that it stays after the
+// stage's mbarrier wait.
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// One stage's A fragments of a thread, dequantized: the codes of rows r and
+// r + 8 of the block (a tile at shared address `tile`, TMA's 64B (int8) or
+// 32B (int4) swizzle), k0 the stage's first k. A[4 s + i] is fragment register
+// i of k-step s: i = 0 row r and i = 1 row r + 8 at k 16 s + 2 t, + 1; i = 2
+// and 3 the same rows at k 16 s + 8 + 2 t, + 1. sel picks those two codes
+// out of a row's words (int8: bytes 2t, 2t + 1 of two words; int4: byte t
+// of one word, whose nibbles are the pair). s2r: the rows' scales where
+// the stage has one scale a row (per_step), else looked up a pair.
 template <bool W4>
-__global__ void __launch_bounds__(kTileThreads)
-    k7_tile_kernel(const Args a) {
-  constexpr int kCodeBytes = W4 ? kBK / 2 : kBK;  // a row's codes a step
-  __shared__ __align__(16) bf16 xs[2][kBM][kLD];
-  __shared__ __align__(16) int8_t cs[2][kBN][kCodeBytes];
-  __shared__ __align__(16) bf16 ws[kBN][kLD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int steps = a.K / kBK;
-  const int s0 = blockIdx.z * a.steps_per_split;
-  const int s1 = min(steps, s0 + a.steps_per_split);
-  const bf16* x = static_cast<const bf16*>(a.x);
-  const long long code_pitch = W4 ? a.K / 2 : a.K;
-
-  auto issue = [&](int step, int buf) {
-    const int k0 = step * kBK;
-    // x: 64 rows x 128 bytes, four 16-byte pieces a thread
-    constexpr int kXPer = kBK * 2 / 16;   // pieces a row
+__device__ __forceinline__ void dequant_stage(uint32_t (&A)[16],
+                                              uint32_t tile, const Args& a,
+                                              int r, int n0, int k0, int t,
+                                              uint32_t sel,
+                                              const uint32_t (&s2r)[2],
+                                              bool per_step) {
+  constexpr int kRow = W4 ? kTK / 2 : kTK;
+#if K7_PROBE == 1
 #pragma unroll
-    for (int i = 0; i < kBM * kXPer / kTileThreads; ++i) {
-      const int p = tid + i * kTileThreads;
-      const int row = p / kXPer, col = (p % kXPer) * 8;
-      const bool ok = m0 + row < a.M;
-      cp_async16(&xs[buf][row][col],
-                 x + static_cast<long long>(ok ? m0 + row : 0) * a.K + k0 +
-                     col,
-                 ok);
+  for (int i = 0; i < 16; ++i) A[i] = s2r[0] ^ (0x3f803f80u + i + k0);
+  return;
+#endif
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r + 8 * h;
+    const uint32_t p = tile + rr * kRow;
+    const int swz = W4 ? (rr >> 2) & 1 : (rr >> 1) & 3;
+    uint32_t w[kRow / 4];
+#pragma unroll
+    for (int j = 0; j < kRow / 16; ++j) {
+      const uint4 v = lds128(p + 16 * (j ^ swz));
+      w[4 * j] = v.x;
+      w[4 * j + 1] = v.y;
+      w[4 * j + 2] = v.z;
+      w[4 * j + 3] = v.w;
     }
-    // codes: 64 rows x kCodeBytes (int8 two pieces a thread, int4 one)
-    constexpr int kPer = kCodeBytes / 16;
 #pragma unroll
-    for (int i = 0; i < kBN * kPer / kTileThreads; ++i) {
-      const int p = tid + i * kTileThreads;
-      const int row = p / kPer, col = (p % kPer) * 16;
-      const bool ok = n0 + row < a.N;
-      cp_async16(&cs[buf][row][col],
-                 a.codes + (ok ? n0 + row : 0) * code_pitch +
-                     (W4 ? k0 / 2 : k0) + col,
-                 ok);
-    }
-    cp_async_commit();
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int g = lane >> 2, q2 = (lane & 3) * 2;
-
-  if (s0 < s1) issue(s0, 0);
-  for (int step = s0; step < s1; ++step) {
-    const int buf = (step - s0) & 1;
-    if (step + 1 < s1) {
-      issue(step + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // dequantize this step's codes: two 16-code chunks of one row a
-    // thread
-#pragma unroll
-    for (int cc = 0; cc < kBK * kBN / (kChunk * kTileThreads); ++cc) {
-      const int row = tid >> 1;
-      const int kk = (tid & 1) * (kBK / 2) + cc * kChunk;
-      uint32_t q[4];
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(
-          &cs[buf][row][W4 ? kk / 2 : kk]);
-      q[0] = src[0];
-      q[1] = src[1];
-      q[2] = W4 ? 0u : src[2];
-      q[3] = W4 ? 0u : src[3];
-      uint32_t packed[kChunk / 2];
-      dequant_pairs<W4>(packed, q, a, n0 + row, step * kBK + kk);
-      uint4* dst = reinterpret_cast<uint4*>(&ws[row][kk]);
-      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + 16 * i + g;
-        af[i][0] = ld_smem32(&xs[buf][r][kk + q2]);
-        af[i][1] = ld_smem32(&xs[buf][r + 8][kk + q2]);
-        af[i][2] = ld_smem32(&xs[buf][r][kk + q2 + 8]);
-        af[i][3] = ld_smem32(&xs[buf][r + 8][kk + q2 + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cn = wn + 8 * j + g;
-        const uint32_t b0 = ld_smem32(&ws[cn][kk + q2]);
-        const uint32_t b1 = ld_smem32(&ws[cn][kk + q2 + 8]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma16816(acc[i][j], af[i], b0, b1);
+    for (int s = 0; s < 4; ++s) {
+      const int k = k0 + 16 * s + 2 * t;
+      const uint32_t slo = per_step ? s2r[h] : scale2(a, n0 + rr, k);
+      const uint32_t shi = per_step ? s2r[h] : scale2(a, n0 + rr, k + 8);
+      if constexpr (W4) {
+        A[4 * s + h] = pair4(__byte_perm(w[2 * s], w[2 * s] >> 4, sel), slo);
+        A[4 * s + 2 + h] =
+            pair4(__byte_perm(w[2 * s + 1], w[2 * s + 1] >> 4, sel), shi);
+      } else {
+        A[4 * s + h] = pair8(__byte_perm(w[4 * s], w[4 * s + 1], sel), slo);
+        A[4 * s + 2 + h] =
+            pair8(__byte_perm(w[4 * s + 2], w[4 * s + 3], sel), shi);
       }
     }
-    __syncthreads();  // the next step overwrites this buffer and ws
   }
-  // c0, c1: row g, cols q2, q2 + 1; c2, c3: row g + 8
+}
+
+template <bool W4, int TN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    k7_tile_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tc) {
+  using S = TileShape<W4, TN>;
+  extern __shared__ unsigned char k7_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(k7_smem) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kTStages * S::stage);
+  uint64_t* empty = full + kTStages;
+  auto xs = [&](int st) {
+    return reinterpret_cast<const bf16*>(base + st * S::stage);
+  };
+  auto cs = [&](int st) {
+    return reinterpret_cast<const uint8_t*>(base + st * S::stage + S::x_bytes);
+  };
+  const int n0 = blockIdx.x * kTRows, m0 = blockIdx.y * TN;
+  const int s0 = blockIdx.z * a.steps_per_split;
+  const int n_it = min(a.K / kTK, s0 + a.steps_per_split) - s0;
+  const int warp = warp_uniform(threadIdx.x / 32), lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers / 32);  // one arrival a warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {
+    // -- the producer: one thread keeps the ring of x and code tiles full
+    producer_regs();
+    if (warp == kWgConsumers / 32 && lane == 0) {
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % kTStages;
+        mbar_wait(&empty[st], ((it / kTStages) & 1) ^ 1);
+        const bool load_x = K7_PROBE != 4 || it < kTStages;
+        mbar_expect_tx(&full[st], load_x ? S::stage : S::c_bytes);
+        if (load_x)
+          tma_load(const_cast<bf16*>(xs(st)), &tx, &full[st],
+                   (s0 + it) * kTK, m0, 0);
+        tma_load(const_cast<uint8_t*>(cs(st)), &tc, &full[st],
+                 (s0 + it) * S::code_row, n0, 0);
+      }
+    }
+    return;
+  }
+  // -- the consumer warpgroups: 64 weight rows each, all TN tokens
+  consumer_regs();
+  const int wg = warp / 4, w4 = warp % 4, g = lane / 4, t = lane % 4;
+  const int r = wg * 64 + w4 * 16 + g;  // this thread's rows: r, r + 8
+  const uint32_t sel = W4 ? t | (4 + t) << 8 : 2 * t | (2 * t + 1) << 8;
+  const bool per_step = a.group % kTK == 0, fixed = a.groups == 1;
+  uint32_t s2r[2] = {0u, 0u};
+  if (fixed)
+    for (int h = 0; h < 2; ++h) s2r[h] = scale2(a, n0 + r + 8 * h, 0);
+  float acc[TN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.0f;
+  uint32_t A0[16], A1[16];
+
+  auto dequant = [&](uint32_t (&A)[16], int it) {
+    const int st = it % kTStages;
+    const int k0 = (s0 + it) * kTK;
+    if (per_step && !fixed)
+      for (int h = 0; h < 2; ++h) s2r[h] = scale2(a, n0 + r + 8 * h, k0);
+    mbar_wait(&full[st], (it / kTStages) & 1);
+    dequant_stage<W4>(A, smem_u32(cs(st)), a, r, n0, k0, t, sel, s2r,
+                      per_step);
+  };
+  auto mma = [&](const uint32_t (&A)[16], int it) {
+    const bf16* xt = xs(it % kTStages);
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int s = 0; s < 4; ++s) {
+      const uint32_t f[4] = {A[4 * s], A[4 * s + 1], A[4 * s + 2],
+                             A[4 * s + 3]};
+      wgmma_rs_kmajor<TN>(acc, f, wg_desc(xt + 16 * s, 16));
+    }
+    wg_commit();
+  };
+  auto release = [&](const uint32_t (&A)[16], int it) {
+    wg_wait0();
+    wg_fence_regs(acc);
+    keep_regs(A);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[it % kTStages]);
+  };
+#if K7_PROBE == 3
+  for (int it = 0; it < n_it; ++it) {
+    mbar_wait(&full[it % kTStages], (it / kTStages) & 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[it % kTStages]);
+  }
+#else
+  // step it's products run while step it + 1's codes are dequantized
+  if (n_it > 0) dequant(A0, 0);
+  for (int it = 0; it < n_it; it += 2) {
+    mma(A0, it);
+    if (it + 1 < n_it) dequant(A1, it + 1);
+    release(A0, it);
+    if (it + 1 >= n_it) break;
+    mma(A1, it + 1);
+    if (it + 2 < n_it) dequant(A0, it + 2);
+    release(A1, it + 1);
+  }
+#endif
+
+  // acc[4 j + 2 h + e]: weight row r + 8 h, token 8 j + 2 t + e
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + 16 * i + g + (e >> 1) * 8;
-        const int n = n0 + wn + 8 * j + q2 + (e & 1);
+  for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * t + e, n = n0 + r + 8 * h;
         if (m >= a.M || n >= a.N) continue;
+        const float v = acc[4 * j + 2 * h + e];
         if (a.splits == 1)
-          store_out<kBF16>(a, m, n, acc[i][j][e]);
-        else
+          store_out<kBF16>(a, m, n, v);
+        else if (K7_PROBE != 5 || v != v)
           a.part[(static_cast<long long>(blockIdx.z) * a.M + m) * a.N + n] =
-              acc[i][j][e];
+              v;
       }
 }
 
@@ -586,7 +966,7 @@ __global__ void k7_finish_kernel(const Args a) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const long long total = static_cast<long long>(a.M) * a.N;
-  if (i >= total) return;
+  if (K7_PROBE == 5 || i >= total) return;
   float v = a.part[i];
   for (int s = 1; s < a.splits; ++s) v += a.part[s * total + i];
   store_out<kBF16>(a, static_cast<int>(i / a.N), static_cast<int>(i % a.N),
@@ -607,15 +987,62 @@ int launch_decode(const Args& a, int mt, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor map of codes [N, row_bytes] bytes, read in [128 rows][64 or 32
+// bytes] boxes with the 64B (int8) or 32B (int4) swizzle; rows past N come
+// in as zeros.
+bool codes_map(CUtensorMap* map, const void* codes, int N, int row_bytes,
+               bool w4) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(row_bytes),
+                              static_cast<cuuint64_t>(N), 1};
+  const cuuint64_t strides[2] = {dims[0], dims[0] * dims[1]};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(w4 ? kTK / 2 : kTK),
+                             static_cast<cuuint32_t>(kTRows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(codes),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             w4 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool W4, int TN>
+int launch_tile(const Args& a, const dim3& grid, cudaStream_t s) {
+  using S = TileShape<W4, TN>;
+  CUtensorMap tx, tc;
+  // x [M, K] as [1, M, K]: [TN rows][64] boxes, rows past M zeros
+  if (!tensor_map(&tx, a.x, 1, a.M, 1, a.K, TN) ||
+      !codes_map(&tc, a.codes, a.N, W4 ? a.K / 2 : a.K, W4))
+    return kInvalid;
+  static std::atomic<uint64_t> raised{0};
+  const cudaError_t err = raise_smem_once(
+      raised, reinterpret_cast<const void*>(k7_tile_wgmma_kernel<W4, TN>),
+      S::smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k7_tile_wgmma_kernel<W4, TN><<<grid, kWgThreads, S::smem, s>>>(a, tx, tc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool W4>
+int launch_tile(const Args& a, int tn, const dim3& grid, cudaStream_t s) {
+  switch (tn) {
+    case 64: return launch_tile<W4, 64>(a, grid, s);
+    case 128: return launch_tile<W4, 128>(a, grid, s);
+    case 256: return launch_tile<W4, 256>(a, grid, s);
+    default: return kInvalid;
+  }
+}
+
 }  // namespace
 
 // y = x . dequant(codes)^T (+ bias). form 0: the decode form, MT tokens a
-// pass (1, 2, 4 or 8); form 1: the tile form (bf16 x, split K into
-// `splits` with `part` [splits, M, N] float32 when splits > 1). x_dtype
-// and y_dtype: 0 float32, 1 bf16, 2 int8 (x only: A8, with sx = the
-// activation scale / 127). K must be a multiple of 32 (64 for the tile
-// form), every pointer 16-byte aligned. Returns the CUDA error of the
-// launches (0 = none).
+// pass (1, 2, 4 or 8); form 1: the tile form (bf16 x, mt = the token tile,
+// 64, 128 or 256; split K into `splits` with `part` [splits, M, N] float32
+// when splits > 1). x_dtype and y_dtype: 0 float32, 1 bf16, 2 int8 (x
+// only: A8, with sx = the activation scale / 127). K must be a multiple of
+// 32 (64 for the tile form), every pointer 16-byte aligned. Returns the
+// CUDA error of the launches (0 = none).
 extern "C" int k7_gemm(const void* x, const void* codes, const void* scale,
                        const void* bias, void* y, void* part, int M, int N,
                        int K, int group, int int4, int x_dtype, int y_dtype,
@@ -633,20 +1060,17 @@ extern "C" int k7_gemm(const void* x, const void* codes, const void* scale,
          M, N, K, group, groups, 1, 0, sx};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form == 1) {
-    if (x_dtype != kBF16 || y_dtype != kBF16 || splits < 1 || K % kBK)
+    if (x_dtype != kBF16 || y_dtype != kBF16 || splits < 1 || K % kTK)
       return kInvalid;
-    const int steps = K / kBK;
+    const int steps = K / kTK;
     a.steps_per_split = (steps + splits - 1) / splits;
     a.splits = (steps + a.steps_per_split - 1) / a.steps_per_split;
-    if (a.splits != splits || (splits > 1 && part == nullptr))
+    if (a.splits != splits || (splits > 1 && part == nullptr) || mt <= 0)
       return kInvalid;
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+    const dim3 grid((N + kTRows - 1) / kTRows, (M + mt - 1) / mt, splits);
     if (grid.y > 65535 || grid.z > 65535) return kInvalid;
-    if (int4)
-      k7_tile_kernel<true><<<grid, kTileThreads, 0, s>>>(a);
-    else
-      k7_tile_kernel<false><<<grid, kTileThreads, 0, s>>>(a);
-    int rc = static_cast<int>(cudaGetLastError());
+    int rc = int4 ? launch_tile<true>(a, mt, grid, s)
+                  : launch_tile<false>(a, mt, grid, s);
     if (rc || splits == 1) return rc;
     const long long total = static_cast<long long>(M) * N;
     k7_finish_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
@@ -662,11 +1086,11 @@ extern "C" int k7_gemm(const void* x, const void* codes, const void* scale,
   }
   if (x_dtype != y_dtype) return kInvalid;
   if (x_dtype == kBF16 && M <= 8 && K % 64 == 0) {
-    const dim3 grid((N + 15) / 16);
-    if (int4)
-      k7_decode_mma_kernel<true><<<grid, kThreads, 0, s>>>(a);
-    else
-      k7_decode_mma_kernel<false><<<grid, kThreads, 0, s>>>(a);
+    if (!int4) {
+      k7_decode_mma_kernel<<<dim3((N + 15) / 16), kThreads, 0, s>>>(a);
+      return static_cast<int>(cudaGetLastError());
+    }
+    k7_decode_int4_kernel<<<dim3((N + 15) / 16), kThreads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   if (x_dtype == kBF16)

@@ -26,10 +26,12 @@ grouped.
   * (sx * (scale / 127))`` in the output dtype, bit for bit the plain
   version's (:func:`int8_matmul_plain`, the sum exact in float64).
 
-Two forms on the card, chosen by M (the rows of x): the decode form
-(CUDA cores, M <= 8 a pass; every M for float32 x and A8) and the tile
-form (tensor cores, bf16 x at M > 8, K split across blocks where the
-tiles alone would not fill the card). ``stats`` counts wrapper calls that
+Two forms on the card, chosen by M (the rows of x) in :func:`plan`: the
+decode form (M <= 8 a pass; tensor cores through ``mma.sync`` for bf16
+x, CUDA cores for float32 x and A8 at every M) and the tile form (bf16 x
+at M > 8: a warp-specialized wgmma kernel, the weights dequantized into
+registers once a token tile, K split across blocks where the blocks
+alone would not fill the card). ``stats`` counts wrapper calls that
 launched (``kernel_launches``, one a call), each form's launches
 (``decode_launches``, ``tile_launches``, ``finish_launches`` for the split
 tile form's second kernel, ``a8_launches``) and the plain versions' calls
@@ -38,6 +40,7 @@ tile form's second kernel, ``a8_launches``) and the plain versions' calls
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -48,17 +51,28 @@ from ..cuda_build import KernelLibrary
 __all__ = ["weight_only_matmul", "weight_only_matmul_cuda",
            "weight_only_matmul_plain", "int8_matmul", "int8_matmul_cuda",
            "int8_matmul_plain", "dequantize", "unpack_int4", "pack_int4",
-           "plan", "stats", "reset_stats", "KERNEL_LIBRARY",
-           "DECODE_MAX_M"]
+           "plan", "tile_splits", "tile_terms", "stats", "reset_stats",
+           "KERNEL_LIBRARY", "DECODE_MAX_M"]
 
 stats = {"kernel_launches": 0, "decode_launches": 0, "tile_launches": 0,
          "finish_launches": 0, "a8_launches": 0, "plain_calls": 0}
 
 DECODE_MAX_M = 8    # bf16 rows the decode form takes; more go to the tiles
-_TILE_BM, _TILE_BN, _TILE_BK = 64, 64, 64   # as kBM, kBN, kBK
+_TILE_ROWS = 128    # as kTRows: weight rows a tile block
+_TILE_K = 64        # as kTK: k a stage of the tile form
+_TOKEN_TILES = (64, 128, 256)   # the tile form's token tiles (wgmma's N)
 _K_ALIGN = 32       # as kKAlign: every form takes k a multiple of it
-_FILL_BLOCKS = 264  # two tile blocks on each of the H100's 132 SMs
+_SMS = 132          # the H100's SMs, one tile block each
 _MIN_SPLIT_STEPS = 4
+# the tile form's cost model (plan): microseconds a stage of a block by
+# token tile, a wave of blocks' own (its ring filled and its epilogue), the
+# bytes a microsecond of split partials written and read back, and the
+# finishing kernel's; fitted (tools/k7_ab.py --fit) to the tile kernel's
+# times on an H100 80GB HBM3 at 700 W
+_STAGE_US = {64: 0.4726, 128: 0.5903, 256: 0.8566}
+_WAVE_US = 2.368
+_PART_BYTES_PER_US = 4.138e6
+_FINISH_US = 3.53
 
 
 def reset_stats():
@@ -148,19 +162,52 @@ def _pass_rows(m):
     return min(8, 1 << max(0, (m - 1).bit_length()))
 
 
+def tile_splits(k):
+    """The K splits the tile form weighs at this k: each as ``k7_gemm``
+    recounts it (stages a split rounded up), none of fewer than
+    ``_MIN_SPLIT_STEPS`` stages of 64."""
+    steps, out = k // _TILE_K, []
+    for want in range(1, max(1, steps // _MIN_SPLIT_STEPS) + 1):
+        if -(-steps // -(-steps // want)) == want:
+            out.append(want)
+    return out
+
+
+def tile_terms(m, n, k, tn, splits):
+    """The cost model's terms for the tile form at token tile ``tn`` and
+    ``splits``: (stages a block times waves of 132 blocks, waves, bytes of
+    float32 partials written and read, 1 where K splits), weighed by
+    ``_STAGE_US[tn]``, ``_WAVE_US``, ``1 / _PART_BYTES_PER_US`` and
+    ``_FINISH_US``."""
+    steps = k // _TILE_K
+    blocks = -(-n // _TILE_ROWS) * -(-m // tn) * splits
+    waves = -(-blocks // _SMS)
+    split = int(splits > 1)
+    return (waves * -(-steps // splits), waves, split * 8 * splits * m * n,
+            split)
+
+
+@functools.lru_cache(maxsize=4096)
 def plan(m, n, k, dtype):
-    """``(form, rows a pass, splits)`` for an ``[m, k] x [n, k]^T``
-    product: the decode form (0) for float32 x, for bf16 x at m <= 8 and
-    where k is not a multiple of the tile form's 64, else the tile form
-    (1), K split so that tiles x splits fill the card (each split at
-    least 4 steps of 64)."""
-    if dtype == torch.float32 or m <= DECODE_MAX_M or k % _TILE_BK:
+    """``(form, rows, splits)`` for an ``[m, k] x [n, k]^T`` product: the
+    decode form (0, ``rows`` tokens a pass) for float32 x, for bf16 x at m
+    <= 8 and where k is not a multiple of the tile form's 64; else the
+    tile form (1), ``rows`` its token tile (64, 128 or 256) and K split
+    in ``splits`` (:func:`tile_splits`), the pair of least modelled time
+    (:func:`tile_terms`): a small token tile pads m least but
+    dequantizes each weight once a tile, and a split fills idle SMs but
+    writes partials. Cached: it depends on the shape alone."""
+    if dtype == torch.float32 or m <= DECODE_MAX_M or k % _TILE_K:
         return 0, _pass_rows(m), 1
-    tiles = -(-n // _TILE_BN) * -(-m // _TILE_BM)
-    steps = k // _TILE_BK
-    want = max(1, min(-(-_FILL_BLOCKS // tiles), steps // _MIN_SPLIT_STEPS))
-    per = -(-steps // want)
-    return 1, 0, -(-steps // per)
+    best = None
+    for tn in _TOKEN_TILES:
+        for splits in tile_splits(k):
+            stages, waves, part, split = tile_terms(m, n, k, tn, splits)
+            us = (stages * _STAGE_US[tn] + waves * _WAVE_US
+                  + part / _PART_BYTES_PER_US + split * _FINISH_US)
+            if best is None or us < best[0]:
+                best = (us, tn, splits)
+    return 1, best[1], best[2]
 
 
 def _check_common(x2, codes, scale, int4, dev):

@@ -26,6 +26,8 @@ from paddle_tpu_torch import quantization as TQ
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.optimizer import Adam
 
+from test_torch_weight_only import jax_ops_compiled_fast  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _few_torch_threads():

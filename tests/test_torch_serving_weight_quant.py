@@ -31,6 +31,8 @@ from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn.quant import WeightOnlyLinear, convert_to_weight_only
 from paddle_tpu_torch.serving import ServingEngine
 
+from test_torch_weight_only import jax_ops_compiled_fast  # noqa: F401
+
 TINY = dict(vocab_size=97, hidden_size=64, intermediate_size=96,
             num_hidden_layers=2, num_attention_heads=4,
             num_key_value_heads=2, max_position_embeddings=64)

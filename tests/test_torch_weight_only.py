@@ -12,8 +12,16 @@ CPU (``nn/quant``, K7's plain version, ``models/convert.py``).
 - A converted LLaMA's state carried across both ways: the JAX model's
   codes load into the port's converted model (logits equal to 1e-5),
   and the port's into the JAX one.
-- K7's form plan from shapes alone.
+- K7's form plan from shapes alone: the form, the tile form's token tile
+  and K split at the trunk's shapes, its cache and the splits it weighs,
+  ``tools/k7_ab.py --fit`` giving back known cost constants; the
+  wrapper's refusals; the bf16x2
+  code-to-weight conversion of the CUDA kernels, emulated on its bits,
+  against ``dequantize()``.
 """
+import json
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -31,6 +39,21 @@ from paddle_tpu_torch.ops import weight_only_kernel as WK
 
 K, N = 96, 40
 ALGOS = ["weight_only_int8", "weight_only_int4"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_ops_compiled_fast():
+    """The JAX side runs op by op, and each op's first call compiles it:
+    most of this module's time. While the module runs, those compiles
+    skip LLVM's optimisation passes (``jax_disable_most_optimizations``;
+    XLA's own passes still run, so the values are the same), as the
+    flash-attention tests' ``FAST_COMPILE`` does for their one program.
+    ``test_torch_quantization.py`` and
+    ``test_torch_serving_weight_quant.py`` use it too."""
+    was = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", was)
 
 
 def _w(seed=0, k=K, n=N):
@@ -239,16 +262,164 @@ def test_a_state_of_another_quantization_is_refused():
     (1, 4096, 4096, torch.bfloat16, (0, 1, 1)),
     (3, 4096, 4096, torch.bfloat16, (0, 4, 1)),
     (8, 1024, 4096, torch.bfloat16, (0, 8, 1)),
-    (40, 4096, 4096, torch.bfloat16, (1, 0, 5)),      # the verify round
-    (256, 4096, 4096, torch.bfloat16, (1, 0, 2)),     # a prefill chunk
-    (264, 4096, 11008, torch.bfloat16, (1, 0, 1)),    # a ragged step
-    (4096, 4096, 4096, torch.bfloat16, (1, 0, 1)),    # a long prefill
+    (40, 4096, 4096, torch.bfloat16, (1, 64, 4)),     # the verify round
+    (256, 4096, 4096, torch.bfloat16, (1, 256, 4)),   # a prefill chunk
+    (264, 4096, 11008, torch.bfloat16, (1, 256, 2)),  # a ragged step
+    (4096, 4096, 4096, torch.bfloat16, (1, 256, 1)),  # a long prefill
     (256, 4096, 4096, torch.float32, (0, 8, 1)),
     (40, 1024, 4128, torch.bfloat16, (0, 8, 1)),      # k % 64 = 32
 ])
 def test_k7_plan_picks_its_form_from_shapes(m, n, k, dtype, want):
     """The decode form below 9 bf16 rows, for every float32 M and where
-    k is no multiple of 64; the tile form otherwise, K split until tiles
-    x splits reach two blocks an SM (each split at least 4 steps of
-    64)."""
+    k is no multiple of 64; the tile form otherwise, with the token tile
+    and the K split of least modelled time."""
     assert WK.plan(m, n, k, dtype) == want
+
+
+# LLaMA-2-7B's q/k/v/o (k 4096, n 4096), gate/up (4096 -> 11008) and down
+# (11008 -> 4096), Mistral-7B's k/v (4096 -> 1024), GPT-3 1.3B's qkv
+# (2048 -> 6144), at the rows the main paths give K7
+@pytest.mark.parametrize("m,n,k,want", [
+    (9, 11008, 4096, (64, 3)),
+    (17, 1024, 4096, (64, 16)),
+    (17, 6144, 2048, (64, 2)),
+    (40, 11008, 4096, (64, 3)),
+    (40, 4096, 11008, (64, 4)),
+    (256, 11008, 4096, (256, 1)),
+    (256, 1024, 4096, (128, 8)),
+    (256, 6144, 2048, (128, 1)),
+    (264, 4096, 4096, (256, 2)),
+    (264, 1024, 4096, (128, 5)),
+    (4096, 11008, 4096, (256, 1)),
+    (4096, 1024, 4096, (256, 1)),
+    (4096, 6144, 2048, (256, 1)),
+])
+def test_k7_tile_plan_at_the_trunk_shapes(m, n, k, want):
+    """The tile form's token tile and split count: a whole prefill chunk
+    (256 rows) in one token tile, so that each weight is dequantized once
+    a call; K split only where 128-row blocks leave SMs idle, and never
+    into splits of fewer than 4 stages of 64."""
+    form, tn, splits = WK.plan(m, n, k, torch.bfloat16)
+    assert form == 1 and (tn, splits) == want
+    assert tn in WK._TOKEN_TILES and splits <= k // 64 // 4
+    per = -(-(k // 64) // splits)
+    assert -(-(k // 64) // per) == splits   # as k7_gemm recounts them
+
+
+def test_k7_plan_is_cached_and_weighs_whole_splits():
+    """plan() depends on the shape alone and is cached; the splits it
+    weighs are those k7_gemm recounts unchanged, none under 4 stages."""
+    WK.plan.cache_clear()
+    first = WK.plan(40, 11008, 4096, torch.bfloat16)
+    assert WK.plan(40, 11008, 4096, torch.bfloat16) == first
+    assert WK.plan.cache_info().hits == 1
+    for k in (2048, 4096, 4160, 11008):
+        steps = k // 64
+        splits = WK.tile_splits(k)
+        assert splits[0] == 1 and len(set(splits)) == len(splits)
+        for s in splits:
+            per = -(-steps // s)
+            assert -(-steps // per) == s and (s == 1 or per >= 4)
+
+
+def test_k7_ab_fit_recovers_the_cost_model(tmp_path):
+    """k7_ab --fit: times made by known constants, with 2 % noise, over
+    every (token tile, splits) at the trunk's shapes, give those
+    constants back."""
+    from paddle_tpu_torch.tools import k7_ab
+    rng = np.random.default_rng(3)
+    stage, wave, rate, finish = {64: 0.6, 128: 0.8, 256: 1.0}, 3.0, 3e6, 2.0
+    rows = {}
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 1024),
+                 (2048, 6144)):
+        for m in (17, 40, 256, 264, 4096):
+            ms = {}
+            for tn in WK._TOKEN_TILES:
+                for s in WK.tile_splits(k):
+                    st, wv, part, split = WK.tile_terms(m, n, k, tn, s)
+                    us = (st * stage[tn] + wv * wave + part / rate
+                          + split * finish)
+                    ms[f"{tn}/{s}"] = us / 1e3 * rng.uniform(0.98, 1.02)
+            rows[f"k {k} n {n} M {m}"] = dict(m=m, n=n, k=k, ms=ms)
+    path = tmp_path / "sweep.txt"
+    path.write_text("a reading\n" + json.dumps({"sweep": rows}) + "\n")
+    got_stage, got_wave, got_inv, got_finish = k7_ab.fit(path)
+    for tn, v in stage.items():
+        assert abs(got_stage[tn] - v) < 0.05 * v
+    assert abs(got_wave - wave) < 0.5 and abs(got_finish - finish) < 1.0
+    assert abs(1 / got_inv - rate) < 0.1 * rate
+
+
+@pytest.mark.parametrize("case,match", [
+    ("k", "not a multiple of 32"),
+    ("codes_k", "against x's k"),
+    ("codes_dtype", "contiguous"),
+    ("scale_dim", "scale must be"),
+    ("groups", "do not divide k"),
+    ("align", "16-byte aligned"),
+])
+def test_k7_wrapper_refuses_what_the_kernel_does_not_take(case, match):
+    """The wrapper's checks run before any launch, on any device."""
+    k, n = 96, 40
+    x = torch.zeros(3, k, dtype=torch.bfloat16)
+    codes = torch.zeros(n, k, dtype=torch.int8)
+    scale = torch.ones(n)
+    if case == "k":
+        x, codes = torch.zeros(3, 80, dtype=torch.bfloat16), codes[:, :80]
+    elif case == "codes_k":
+        codes = codes[:, :64].contiguous()
+    elif case == "codes_dtype":
+        codes = codes.to(torch.int16)
+    elif case == "scale_dim":
+        scale = torch.ones(n, 2, 2)
+    elif case == "groups":
+        scale = torch.ones(n, 5)
+    elif case == "align":
+        x = torch.zeros(3 * k + 1, dtype=torch.bfloat16)[1:].view(3, k)
+    with pytest.raises(ValueError, match=match):
+        WK._check_common(x, codes.contiguous() if case == "k" else codes,
+                         scale, False, x.device)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        WK.weight_only_matmul_cuda(x, codes, scale)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        WK.int8_matmul_cuda(x.to(torch.int8), codes, scale, 0.5,
+                            torch.bfloat16)
+
+
+def _bf16_bits_to_f32(bits):
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32)
+
+
+def _round_bf16(v):
+    """float32 -> the nearest bf16 (ties to even), as float32."""
+    u = np.asarray(v, np.float32).view(np.uint32)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).view(np.float32)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_k7_bf16x2_conversion_is_dequantize_bit_for_bit(int4):
+    """The CUDA kernels build a code as a bf16 integer by its bits (int8:
+    0x4300 | (c & 127) less 0x4300 | (c & 128), that is 128 + m less 128
+    or 256; int4: 0x4300 | (nibble ^ 8), 136 + c, less 136) and multiply
+    it by the bf16 scale with one rounding (fma with -0). Every code,
+    times scales over the bf16 range weights take, gives dequantize()'s
+    weight bit for bit."""
+    codes = np.arange(-8, 8) if int4 else np.arange(-128, 128)
+    b = codes.astype(np.int64) & (0xF if int4 else 0xFF)
+    if int4:
+        c = _bf16_bits_to_f32((b ^ 8) | 0x4300) - np.float32(136)
+    else:
+        c = (_bf16_bits_to_f32((b & 0x7F) | 0x4300)
+             - _bf16_bits_to_f32((b & 0x80) | 0x4300))
+    np.testing.assert_array_equal(c, codes.astype(np.float32))
+    rng = np.random.default_rng(9)
+    scale = np.concatenate([rng.uniform(1e-5, 1e-1, 300),
+                            rng.uniform(1e-38, 1e-30, 20)]).astype(
+        np.float32)
+    s = _round_bf16(scale)
+    got = _round_bf16(c[None, :].astype(np.float64) * s[:, None])
+    q = torch.tensor(np.broadcast_to(codes, (len(s), len(codes))),
+                     dtype=torch.int8)
+    want = WK.dequantize(WK.pack_int4(q) if int4 else q, torch.tensor(scale),
+                         int4, torch.bfloat16)
+    np.testing.assert_array_equal(got, want.float().numpy())
